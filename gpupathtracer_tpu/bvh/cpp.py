@@ -1,8 +1,7 @@
 """ctypes binding for the native SBVH builder (builder_cpp/sbvh.cpp).
 
-Compiles on first use with g++ (-O3), cached by source hash under
-~/.cache/gpupathtracer_tpu (no pip/pybind dependency; C ABI + ctypes, as the
-environment provides no pybind11).
+Compiles on first use with g++ (-O3), cached by source hash under the
+checkout's cache/native/ (no pip/pybind dependency; C ABI + ctypes).
 """
 
 from __future__ import annotations
@@ -17,25 +16,18 @@ from typing import Optional, Tuple
 import numpy as np
 
 from gpupathtracer_tpu.bvh.types import BinaryBVH, BuildStats
+from gpupathtracer_tpu.utils.paths import cache_path
 
 _SRC = os.path.join(os.path.dirname(__file__), "builder_cpp", "sbvh.cpp")
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _cache_dir() -> str:
-    d = os.environ.get("GPT_TPU_CACHE",
-                       os.path.join(os.path.expanduser("~"), ".cache",
-                                    "gpupathtracer_tpu"))
-    os.makedirs(d, exist_ok=True)
-    return d
-
-
 def _compile() -> str:
     with open(_SRC, "rb") as f:
         digest = hashlib.sha1(f.read()).hexdigest()[:16]
-    so_path = os.path.join(_cache_dir(), f"libsbvh-{digest}.so")
+    so_path = os.path.join(cache_path("native"), f"libsbvh-{digest}.so")
     if not os.path.exists(so_path):
-        tmp = so_path + ".tmp"
+        tmp = f"{so_path}.{os.getpid()}.tmp"
         cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
                "-fPIC", _SRC, "-o", tmp]
         subprocess.run(cmd, check=True, capture_output=True)

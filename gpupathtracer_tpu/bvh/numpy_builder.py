@@ -37,8 +37,8 @@ def build_binary_bvh(p0: np.ndarray, p1: np.ndarray, p2: np.ndarray,
     Args: p0/p1/p2 [T,3] float32 triangle vertices. max_leaf caps leaf size
     (must fit the 4-bit wide-leaf encoding, so <= 15). force_leaf packs any
     node with <= max_leaf refs into a leaf unconditionally — fatter leaves
-    for packet/Pallas trees where pops, not triangle tests, are the
-    expensive unit (each pop already pays a full-width row of tests).
+    for trees where pops, not triangle tests, are the expensive unit (a
+    leaf pop reads one row of up to 10 triangles).
     """
     assert 1 <= max_leaf <= 15
     t_start = time.perf_counter()

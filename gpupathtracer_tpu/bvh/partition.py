@@ -1,19 +1,15 @@
-"""Scene partitioning for multi-chip traversal — chips own subtrees.
+"""Scene partitioning for multi-device traversal — devices own subtrees.
 
 The pixel/sample-sharded mesh path (parallel/mesh.py) replicates the scene
-per chip: it scales samples, not scene size or incoherent throughput. This
-module implements the other axis — the pod-scale architecture where each
-chip pins ONE subtree's merged row table in VMEM and rays MIGRATE between
-chips (parallel/partition.py rotates ray shards around the ICI ring with
-`ppermute`). Motivation from the measured scaling curve (PERF.md): packet
-traversal beats the 100 Mrays/s target outright once the resident table is
-a few hundred rows — D chips give D-fold smaller resident trees exactly
-where the single-chip kernel collapses.
+per device: it scales samples, not scene size. This module implements the
+other axis, where each device holds ONE subtree's merged row table and rays
+MIGRATE between devices (parallel/partition.py: a `ppermute` rotation or a
+demand-routed `all_to_all`). D devices hold D-fold smaller trees.
 
 Partition construction (host, numpy):
   1. Cut the wide tree into >= D subtree roots balanced by REACHABLE ROW
-     COUNT (_row_cut; the treelet machinery's area-greedy cut can leave
-     one subtree holding half the table).
+     COUNT (_row_cut; an area-greedy cut can leave one subtree holding
+     half the table).
   2. Group the cut entries into exactly D groups with a weight-balanced
      recursive kd split of their centroids ("spatial", the measured
      default: V = 1.80 vs 5.01 subtree visits per incoherent ray for
@@ -24,14 +20,13 @@ Partition construction (host, numpy):
      wall proxy -6% incoherent closest / -43% any-hit at flat total
      pops).
   4. For each group, extract the reachable rows into a compact local
-     table headed by the synthetic root rows — the unmodified Pallas
-     kernel then traverses the local forest starting at entry 0 (or the
-     steady root), same as any whole-tree table.
+     table headed by the synthetic root rows — the unmodified traversal
+     then walks the local forest starting at entry 0 (or the steady
+     root), same as any whole-tree table.
 
 The reference has no counterpart (single GPU); its only scaling axis is
-the dispatch grid (src/core/Renderer.cpp:660). This is the TPU-native
-replacement designed for ICI: static shapes, no demand-dependent
-exchanges, bandwidth = rays * bytes/ray per hop (cost model in PERF.md).
+the dispatch grid (src/core/Renderer.cpp:660). Shapes are static;
+bandwidth = rays * bytes/ray per hop.
 """
 
 from __future__ import annotations
@@ -40,7 +35,6 @@ from typing import NamedTuple
 
 import numpy as np
 
-from gpupathtracer_tpu.bvh.treelet import build_treelet_cut
 from gpupathtracer_tpu.bvh.types import INVALID_ENTRY
 
 
@@ -86,8 +80,8 @@ def _row_cut(node_rows: np.ndarray, W: int, entry_all: np.ndarray,
              num_devices: int):
     """Cut the tree by REACHABLE ROW COUNT, not surface area.
 
-    The treelet machinery's area-greedy cut (bvh/treelet.py) optimizes for
-    ray demand; for device load balance it can leave one subtree holding
+    An area-greedy cut optimizes for ray demand; for device load balance
+    it can leave one subtree holding
     half the table at any target (measured on proc:sponza: max 24.7k of
     49.9k rows). Here the frontier entry with the most reachable rows is
     expanded until no subtree exceeds ~total/(2D) (or the 8*D root budget
@@ -301,7 +295,7 @@ def build_partition(node_rows: np.ndarray, num_wide_nodes: int,
     measured as a loss); replication spreads the concentrated demand
     uniformly over all D chips (every chip serves its own resident shard
     at hop 0) and the early-found hit tightens `t` for every later
-    hop's route mask — trading VMEM headroom (+K subtree copies/chip)
+    hop's route mask — trading memory headroom (+K subtree copies/chip)
     for barrier balance. Default K=6, the measured sweet spot of the
     K-sweep (PERF.md replicate-hot table: wall proxy -17% incoherent
     closest / -43% any-hit vs K=0 at flat total pops, +23% rows/chip;

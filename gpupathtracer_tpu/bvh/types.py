@@ -1,13 +1,11 @@
 """BVH data formats.
 
 Builders (C++ SBVH or numpy binned-SAH) emit a *binary* BVH; a shared
-collapse pass flattens it to the 8-wide traversal layout consumed by the JAX
-and Pallas traversal kernels.
+collapse pass flattens it to the 8-wide layout the traversals read.
 
-Wide layout (TPU-first redesign of the reference's 2-texel binary node
-stream, src/core/BVH.cpp:2261-2277): one node = 8 child AABBs gathered as a
-single [8, 6] block (vectorized slab test on the VPU) plus 8 encoded child
-entries. Entry encoding:
+Wide layout (a redesign of the reference's 2-texel binary node stream,
+src/core/BVH.cpp:2261-2277): one node = 8 child AABBs read as a single
+[8, 6] block plus 8 encoded child entries. Entry encoding:
 
   - ``INVALID_ENTRY``       : empty slot
   - ``e >= 0``              : internal child, wide-node index e
@@ -59,11 +57,10 @@ class WideBVH(NamedTuple):
     Two mirrored layouts:
       - per-lane layout (child_bounds/child_entry/refs) for the vectorized
         per-ray traversal;
-      - packed row layout (node_rows) for the packet traversal: ONE merged
-        table holding both node rows and leaf rows, so a traversal step
-        fetches exactly ONE row per packet per pop (TPU gathers cost
-        ~constant per row regardless of width, measured ~28 ns/row on v5e;
-        everything a step needs lives in one row).
+      - packed row layout (node_rows) for the CUDA and packet traversals:
+        ONE merged table holding both node rows and leaf rows, so a
+        traversal step reads exactly ONE row (everything a step needs lives
+        in one row).
 
     node_rows [W + L, 128] f32. Rows 0..W-1 are nodes: cols 0:48 = 8 children
     x (min.xyz, max.xyz), cols 48:56 = child entries (int32 bit-cast), rest
@@ -79,15 +76,6 @@ class WideBVH(NamedTuple):
     refs: np.ndarray          # [R] i32 triangle indices
     node_rows: np.ndarray = None     # [W+L, 128] f32 merged packet table
     packet_entry: np.ndarray = None  # [W, 8] i32 entries (merged-row form)
-    cut_entry: np.ndarray = None     # [C] i32 treelet roots (bvh/treelet.py)
-    cut_bounds: np.ndarray = None    # [C, 6] f32 treelet root bounds
-    # Dense cluster-leaf layout (bvh/cluster.py): when present, node_rows
-    # is the CLUSTER top tree (leaf entries = -(cluster_idx << 4 | 1) - 1)
-    # and the Pallas kernel's leaf phase runs the MXU dense intersector
-    # over blocks of cluster_rows; prim ids come back cluster-LOCAL
-    # (cidx * Tc + slot) and are remapped through cluster_refs.
-    cluster_rows: np.ndarray = None  # [Ncl*8, 3*Tc] f32 inverse-matrix blocks
-    cluster_refs: np.ndarray = None  # [Ncl*Tc] i32 slot -> global prim id
 
     @property
     def num_nodes(self) -> int:

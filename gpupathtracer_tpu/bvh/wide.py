@@ -1,12 +1,12 @@
 """Binary -> 8-wide BVH collapse and flattening.
 
-TPU-first redesign of the reference's BFS binary serialization
-(src/core/BVH.cpp:2224-2277): instead of 2-texel binary nodes traversed with
-branchy if-if loops, we collapse the binary tree into nodes of up to 8
-children so one traversal step gathers a single [8, 6] bounds block and slab-
-tests all children on the VPU. Collapse policy: repeatedly expand the
-largest-surface-area internal child (greedy SAH-area heuristic), mirroring
-the reference's "larger child first" ordering intuition (BVH.cpp:2237-2248).
+A redesign of the reference's BFS binary serialization
+(src/core/BVH.cpp:2224-2277): instead of 2-texel binary nodes, we collapse
+the binary tree into nodes of up to 8 children so one traversal step reads a
+single [8, 6] bounds block and slab-tests all children. Collapse policy:
+repeatedly expand the largest-surface-area internal child (greedy SAH-area
+heuristic), mirroring the reference's "larger child first" ordering
+intuition (BVH.cpp:2237-2248).
 """
 
 from __future__ import annotations
@@ -18,8 +18,8 @@ import numpy as np
 from gpupathtracer_tpu.bvh.types import (INVALID_ENTRY, BinaryBVH, WideBVH,
                                          encode_leaf_entry)
 
-# Merged-table row width in f32 lanes. 128 = one TPU vector-register lane
-# row, the alignment unit Mosaic requires for dynamic VMEM slices.
+# Merged-table row width in f32: 512 bytes, room for 8 child boxes and
+# entries or 10 triangles, and aligned for 16-byte loads of every field.
 ROW_WIDTH = 128
 
 
@@ -29,9 +29,10 @@ def collapse_to_wide(bvh: BinaryBVH, arity: int = 8) -> Tuple[WideBVH, int]:
     Returns (wide_bvh, max_wide_depth). Leaf counts must fit in 4 bits
     (builders cap leaves at <= 15 refs).
 
-    arity 16 still fits one 128-lane row (16*6 bounds + 16 entries = 112
-    lanes) and halves internal node count — the pop count the packet
-    kernel is latency-bound on. Supported by the Pallas traversal only.
+    arity 16 still fits one 128-float row (16*6 bounds + 16 entries = 112
+    floats) and halves internal node count. The row-table traversals (CUDA
+    and XLA packets) read 8-wide nodes; other arities take the per-lane
+    traversal.
     """
     assert 2 <= arity <= 16
     sa = _half_area(bvh.bmin, bvh.bmax)
@@ -94,24 +95,14 @@ def collapse_to_wide(bvh: BinaryBVH, arity: int = 8) -> Tuple[WideBVH, int]:
 
 
 def pack_for_packets(wide: WideBVH, tri_p0: np.ndarray, tri_e1: np.ndarray,
-                     tri_e2: np.ndarray, leaf_size: int = 4,
-                     tri_mat: np.ndarray = None,
-                     tri_nsign: np.ndarray = None) -> WideBVH:
-    """Attach the packed row layout used by the packet traversal.
+                     tri_e2: np.ndarray, leaf_size: int = 4) -> WideBVH:
+    """Attach the merged row layout read by the CUDA and packet traversals.
 
     One merged table: node rows (8 child AABBs + 8 bit-cast entries) followed
-    by leaf rows (up to `leaf_size` MT-ready triangles + bit-cast prim ids).
-    A traversal pop then needs exactly one row gather per packet — the unit
-    the TPU's gather hardware prices at (~28 ns/row on v5e regardless of
-    row width).
-
-    Rows are 128 f32 wide: the TPU lane width, so a Pallas kernel can
-    dynamic-slice one row from a VMEM-resident table (Mosaic requires
-    lane-aligned slices). One row packs 10 triangles; leaf_size > 10
-    spans ceil(leaf_size/10) CONSECUTIVE rows per leaf (entries encode
-    the block's first row), fetched as one wider dynamic slice — leaf
-    pops are ~46% of incoherent closest pops (PERF.md session 8), so
-    fatter leaves trade ~free VPU work for pop count.
+    by leaf rows (up to `leaf_size` MT-ready triangles + bit-cast prim ids),
+    so a traversal pop reads exactly one row. One row packs 10 triangles;
+    leaf_size > 10 spans ceil(leaf_size/10) CONSECUTIVE rows per leaf
+    (entries encode the block's first row).
     """
     tris_per_row = ROW_WIDTH // 12                  # 10
     R = -(-leaf_size // tris_per_row)               # rows per leaf block
@@ -148,18 +139,6 @@ def pack_for_packets(wide: WideBVH, tri_p0: np.ndarray, tri_e1: np.ndarray,
             have[:, None], tri_e2[tri], 0.0)
         leaf_rows[rows, base + 9] = np.where(
             have, tri.astype(np.int32), -1).astype(np.int32).view(np.float32)
-        # Spare slots 10/11 of the 12-float stride: the triangle's material
-        # id and shading-normal sign (soup.normal = +/- normalize(e1 x e2),
-        # mesh.py:80-85). The megakernel captures these at hit time so
-        # shading needs NO post-traversal row gather; every other kernel
-        # ignores them.
-        if tri_mat is not None:
-            leaf_rows[rows, base + 10] = np.where(
-                have, tri_mat[tri].astype(np.int32), 0
-            ).astype(np.int32).view(np.float32)
-        if tri_nsign is not None:
-            leaf_rows[rows, base + 11] = np.where(
-                have, tri_nsign[tri], 1.0).astype(np.float32)
 
     # --- entries referencing merged rows ---------------------------------
     packet_entry = entries.copy()
@@ -171,12 +150,7 @@ def pack_for_packets(wide: WideBVH, tri_p0: np.ndarray, tri_e1: np.ndarray,
     node_rows[:W, 0:6 * arity] = wide.child_bounds.reshape(W, 6 * arity)
     node_rows[:W, 6 * arity:7 * arity] = packet_entry.view(np.float32)
     node_rows[W:] = leaf_rows
-
-    from gpupathtracer_tpu.bvh.treelet import build_treelet_cut
-    cut_entry, cut_bounds = build_treelet_cut(node_rows, W, arity=arity)
-
-    return wide._replace(node_rows=node_rows, packet_entry=packet_entry,
-                         cut_entry=cut_entry, cut_bounds=cut_bounds)
+    return wide._replace(node_rows=node_rows, packet_entry=packet_entry)
 
 
 def _wide_depth(child_entry: np.ndarray) -> int:

@@ -67,57 +67,29 @@ class RenderConfig:
     ray_chunk: int = 1 << 17               # rays per traversal chunk (memory/divergence knob)
     stack_depth: int = 48
     wide_arity: int = 8                    # children per wide-BVH node
-    # Tree shape tuned for packet pops (PERF.md leaf-density sweep): fat
-    # forced leaves beat the reference's GPU-optimal 1.01-tri leaves 2.8x
-    # on TPU and shrink the merged table ~7x.
     leaf_size: int = 10                    # max triangles per wide-BVH leaf
     force_leaf: bool = True                # pack leaves to leaf_size unconditionally
-    cluster_tris: int = 0                  # >0 (multiple of 128): dense cluster
-    #                                        leaves — subtrees of <= this many tris
-    #                                        become single MXU-intersected pops
-    #                                        (bvh/cluster.py; pallas/tsort paths only)
     reinsert_rounds: int = 0               # Bittner-2013 insertion optimizer passes
     #                                        (the pass BVH.cpp:2303-2397 stubbed out)
-    traversal: str = "auto"                # "auto" | "pallas" (on-core kernel) | "packet" | "perray"
-    bounce_traversal: str = "auto"         # bounce-ray override: "auto" | "same" | "treelet" | any traversal name
-    treelet_min: int = 1 << 15             # min wavefront width for treelet binning/sorting
+    traversal: str = "auto"                # "auto" (by backend) | "cuda" | "packet" | "perray"
     sort_rays: bool = False                # bounce-wavefront coherence sort (alive-first)
     shadow_rev: bool = False               # trace NEE shadow rays from the light end
-    shadow_sort: bool = True               # reuse the bounce tsort perm for shadow rays
-    fused_pair: bool = False               # co-schedule 2 packets per Pallas grid step
-    #                                        (_kernel_pair; measured A/B knob)
-    fused_pair_occl: bool = True           # fused-pair pops for UNGROUPED occlusion
-    #                                        queries on SMALL tables (< 8192 rows —
-    #                                        r5 paired A/Bs: bathroom any-hit -20%;
-    #                                        big tables excluded: sponza coherent
-    #                                        any-hit +12% loss, and its incoherent
-    #                                        shadows ride the grouped tsort path)
-    tsort_alternate: bool = False          # recompute the tsort perm on even bounces only
     frame_batch: int = 1                   # spp accumulated per dispatch (realtime knob)
-    megakernel: str = "off"                # "off" | "on" | "auto": run eligible
-    #                                        wavefront/direct frames through the
-    #                                        all-on-core bounce loop (ops/megakernel.py)
-    mega_fused_nee: bool = False           # deferred-shadow fused walk: each bounce's
-    #                                        NEE shadow rays trace as the partner
-    #                                        stream of the NEXT bounce's closest walk
-    #                                        (walk_fused, _kernel_pair schedule);
-    #                                        schedule-only, cluster-incompatible
     compaction: bool = True                # bounce-epoch live-path compaction
-    compaction_divs: Tuple[int, ...] = (4, 16, 64)  # phase width schedule (PERF.md r3 sweep)
+    compaction_divs: Tuple[int, ...] = (4, 16, 64)  # phase width schedule
     sampler: str = "random"                # pixel jitter: "random" | "ld" (R2 + per-pixel rotation)
     mip_levels: int = 1                    # texture mip pyramid depth; >1 = trilinear
     #                                        sampling with ray-cone LOD (beyond the
     #                                        reference, which samples level 0 only)
     pixel_order: str = "morton"            # "morton" | "hilbert" (8x8 blocks)
     packet_size: int = 128                 # rays per XLA shared-stack packet
-    pallas_packet_size: int = 2048         # rays per Pallas kernel packet (mult of 128)
     bvh_builder: str = "auto"              # "auto" | "cpp" | "numpy"
     spatial_splits: bool = True            # SBVH spatial splits (C++ builder)
     use_float32: bool = True
     # Parallelism -----------------------------------------------------------
     mesh_shape: Tuple[int, ...] = (1,)     # device mesh, samples sharded over axis "samples"
-    partition_chips: int = 0               # >0: scene-PARTITIONED mesh — chips own BVH
-    #                                        subtrees, rays ring via ppermute
+    partition_chips: int = 0               # >0: scene-PARTITIONED mesh — devices own BVH
+    #                                        subtrees, rays migrate between them
     #                                        (parallel/partition.py); overrides mesh_shape
     partition_samples: int = 1             # sample replicas composed over the partition
     partition_routing: str = "ring"        # ray migration: "ring" (static ppermute) or

@@ -26,7 +26,7 @@ T_MAX = 1e20
 def render_sample_ao(scene, cam: CameraParams, pixel_x, pixel_y, key,
                      width: int, height: int,
                      stack_depth: int = 48, leaf_size: int = 4,
-                     traversal: str = "packet", packet_size: int = 128,
+                     traversal: str = "auto", packet_size: int = 128,
                      radius: float = 2.0):
     """One AO sample per pixel; returns ([N, 3] grey radiance, rays)."""
     n = pixel_x.shape[0]

@@ -28,8 +28,8 @@ def make_material_instance(scene, mat_id, uv=None,
     """Gather material data for per-lane material ids [N].
 
     All constant fields come from ONE [N, 16] row gather of the packed
-    mat_rows table (row gathers cost ~30 ns each width-independent,
-    PERF.md); callers in the hot loop can pass a pre-gathered `row` to
+    mat_rows table (a gather costs per row, not per column); callers in
+    the hot loop can pass a pre-gathered `row` to
     share it with their own field reads (e.g. the delta-material branch).
 
     With `textured` (static) and `uv`, albedo comes from the texture atlas

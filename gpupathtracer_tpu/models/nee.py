@@ -37,9 +37,8 @@ def sample_light_vertex(scene, u_select, u_tri):
     """RandomLightVertex (Iterative.comp:34-82): CDF search + sqrt warp.
 
     Returns (position, normal, emission), all read from ONE gather of the
-    packed per-emitter light_rows table (was 5 separate row gathers —
-    tri id, geometry, normal, mat id, emission — at ~30 ns each,
-    PERF.md round 3)."""
+    packed per-emitter light_rows table (in place of 5 separate row
+    gathers: tri id, geometry, normal, mat id, emission)."""
     selected = u_select * scene.total_light_area
     i = jnp.searchsorted(scene.light_cdf, selected, side="right")
     i = jnp.clip(i, 0, scene.light_rows.shape[0] - 1).astype(jnp.int32)

@@ -42,7 +42,7 @@ def render_sample_reference(scene, cam: CameraParams, pixel_x, pixel_y, key,
                             stack_depth: int = 48,
                             leaf_size: int = 4,
                             model: str = "trowbridge_reitz",
-                            traversal: str = "packet",
+                            traversal: str = "auto",
                             packet_size: int = 128,
                             textured: bool = False,
                             sun: bool = False):

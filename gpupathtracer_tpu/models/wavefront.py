@@ -1,6 +1,6 @@
 """Wavefront path-tracing integrator — the flagship model.
 
-TPU-first redesign of the reference's persistent-thread megakernel
+A redesign of the reference's persistent-thread megakernel
 (src/shaders/Iterative.comp:214-307): the whole sample wavefront advances
 through a bounded `lax.while_loop` over bounces with SoA state in HBM; dead
 lanes are masked instead of atomically replaced (the refill role of
@@ -49,11 +49,7 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
                        stack_depth: int = 48,
                        leaf_size: int = 4,
                        nee: bool = True,
-                       traversal: str = "packet",
-                       bounce_traversal: str = "same",
-                       fused_pair: bool = False,
-                       fused_pair_occl: bool = True,
-                       treelet_min: int = 1 << 15,
+                       traversal: str = "auto",
                        packet_size: int = 128,
                        textured: bool = False,
                        mips: bool = False,
@@ -61,8 +57,6 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
                        sun_mode: str = "disk",
                        sort_rays: bool = False,
                        shadow_rev: bool = False,
-                       shadow_sort: bool = False,
-                       tsort_alternate: bool = False,
                        delta: bool = False,
                        compaction: bool = True,
                        compaction_divs: tuple = (2, 4, 8, 16, 32, 64, 128),
@@ -101,10 +95,8 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
         pixel_cone = (jnp.linalg.norm(cam.vertical)
                       / (jnp.maximum(_fd, 1e-6) * height))
     if partition is not None:
-        # Scene-partitioned mode: traversal is the ring, not a local
+        # Scene-partitioned mode: traversal crosses devices, not a local
         # kernel choice; lane-reordering machinery stays off.
-        traversal = "partition"
-        bounce_traversal = "same"
         sort_rays = False
         from gpupathtracer_tpu.parallel.partition import (
             trace_partitioned_local, trace_partitioned_routed)
@@ -184,7 +176,6 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
         last_pos: jnp.ndarray
         alive: jnp.ndarray
         rays: jnp.ndarray
-        perm: jnp.ndarray  # carried tsort permutation (tsort_alternate)
 
     init = Carry(
         i=jnp.int32(0), key=key, o=ray_o, d=ray_d,
@@ -195,84 +186,43 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
         last_pos=ray_o,
         alive=jnp.ones((n,), bool),
         rays=jnp.int32(0),
-        # Zero-size unless the alternation actually carries a perm, so the
-        # default path's loop carry (and compiled graph) is unaffected.
-        perm=(jnp.arange(n, dtype=jnp.int32) if tsort_alternate
-              else jnp.zeros((0,), jnp.int32)),
     )
 
-    def body(c: Carry, trav: str = traversal) -> Carry:
+    def body(c: Carry) -> Carry:
         nw = c.o.shape[0]  # current (phase) wavefront width
         key, k = jax.random.split(c.key)
         rnd = jax.random.uniform(k, (nw, 9))
         rays = c.rays + jnp.sum(c.alive, dtype=jnp.int32)
 
         t_max_full = jnp.full((nw,), T_MAX, jnp.float32)
-        # One treelet-sort permutation per bounce, shared between the
-        # closest-hit and (optionally) the shadow trace: shadow origins
-        # ARE the bounce rays' hit points, which the (top1, top2) key
-        # already groups by destination treelet, so the shadow rays get
-        # grouping for one gather + scatter instead of a fresh sort.
-        shared_perm = shared_inv = None
-        if trav == "tsort" and shadow_sort and nee and partition is None:
-            from gpupathtracer_tpu.ops.tsort import _sort_perm
-            if tsort_alternate:
-                # Alternate-bounce permutation reuse: the key+argsort half
-                # of the sort machinery (~65 ns/ray) runs on even bounces
-                # only; odd bounces reuse the previous grouping (rays stay
-                # in their lanes between bounces, so the stale perm is
-                # still a valid — just less subtree-coherent — grouping).
-                shared_perm = jax.lax.cond(
-                    c.i % 2 == 0,
-                    lambda: _sort_perm(scene.bvh.cut_bounds, c.o, c.d,
-                                       t_max_full, c.alive, bvh=scene.bvh),
-                    lambda: c.perm)
-            else:
-                shared_perm = _sort_perm(scene.bvh.cut_bounds, c.o, c.d,
-                                         t_max_full, c.alive,
-                                         bvh=scene.bvh)
-            # One inverse for BOTH the bounce and shadow unpermutes
-            # (gather by inverse beats a scatter, ops/tsort.py).
-            shared_inv = jnp.argsort(shared_perm).astype(jnp.int32)
         if partition is not None:
             from gpupathtracer_tpu.ops.traverse import Hit
             tt_, pp_, uu_, vv_ = _ptrace(
                 part_table, part_bounds, c.o, c.d, t_max_full, c.alive,
                 axis_name=partition_axis, num_devices=num_chips,
                 stack_depth=stack_depth, leaf_size=leaf_size,
-                packet_size=max(packet_size, 128),
-                interpret=jax.default_backend() != "tpu")
+                packet_size=max(packet_size, 128))
             hit = Hit(t=tt_, prim=pp_, u=uu_, v=vv_)
-        elif sort_rays and trav != "perray":
+        elif sort_rays:
             perm = ray_sort_perm(c.o, c.d, c.alive)
             hit_s = trace_closest(scene, c.o[perm], c.d[perm], t_max_full,
                                   c.alive[perm], stack_depth=stack_depth,
-                                  leaf_size=leaf_size, traversal=trav,
-                                  packet_size=packet_size,
-                                  fused_pair=fused_pair)
+                                  leaf_size=leaf_size, traversal=traversal,
+                                  packet_size=packet_size)
             inv = jnp.argsort(perm)
             hit = type(hit_s)(t=hit_s.t[inv], prim=hit_s.prim[inv],
                               u=hit_s.u[inv], v=hit_s.v[inv])
-        elif shared_perm is not None:
-            from gpupathtracer_tpu.ops.tsort import trace_closest_tsort
-            hit = trace_closest_tsort(scene, c.o, c.d, t_max_full, c.alive,
-                                      stack_depth=stack_depth,
-                                      leaf_size=leaf_size,
-                                      packet_size=max(packet_size, 128),
-                                      fused_pair=fused_pair,
-                                      perm=shared_perm, inv=shared_inv)
         else:
             hit = trace_closest(scene, c.o, c.d, t_max_full, c.alive,
                                 stack_depth=stack_depth, leaf_size=leaf_size,
-                                traversal=trav, packet_size=packet_size,
-                                fused_pair=fused_pair)
+                                traversal=traversal, packet_size=packet_size)
         miss = hit.prim < 0
         prim = jnp.maximum(hit.prim, 0)
 
-        # ONE packed row gather for (normal, uv, mat id, MATERIAL row) — row
-        # gathers cost ~30 ns each width-independent, so the per-triangle
-        # pre-join (scenedata.py: cols 16:32 = mat_rows[tri.mat]) removes
-        # the mat_rows[mat_id] gather from every lane-bounce (PERF.md r3).
+        # ONE packed row gather for (normal, uv, mat id, MATERIAL row): the
+        # per-triangle pre-join (scenedata.py: cols 16:32 =
+        # mat_rows[tri.mat]) removes the mat_rows[mat_id] gather from every
+        # lane-bounce.
         shade = scene.tri_shade[prim]             # [N, 32]
         normal = shade[:, 0:3]
         pos = c.o + c.d * hit.t[..., None] + 0.003 * normal
@@ -342,9 +292,7 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
             # light sample is exactly zero (light below the hemisphere,
             # zero BSDF) and delta surfaces (zero BSDF toward any sampled
             # point) read the same 0 whatever the occlusion result, so
-            # masking them out of the any-hit trace is EXACT — the kernel
-            # drops inactive lanes from packet unions (and whole dead
-            # packets exit before their first pop).
+            # masking them out of the any-hit trace is EXACT.
             shadow_live = (alive & ~is_delta
                            & jnp.any(ls.throughput * ls.emission != 0.0,
                                      axis=-1))
@@ -353,51 +301,24 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
             if shadow_rev:
                 # Occlusion is segment-symmetric: trace from the LIGHT end
                 # toward the surface. Shadow-ray origins then cluster at
-                # the emitters (a "light camera"), the coherent regime
-                # where the any-hit kernel runs ~9x faster (PERF.md
-                # any-hit sweep: 42.8 coherent vs 4.96 incoherent).
+                # the emitters (a "light camera"), a more coherent set.
                 # Finite segments only (sun rays keep the forward form).
                 finite = st_ < 1e19
                 so = jnp.where(finite[:, None], so + sd * st_[:, None], so)
                 sd = jnp.where(finite[:, None], -sd, sd)
-            # Shadow rays keep the PRIMARY traversal even when a bounce
-            # override (tsort/treelet) is active: a FRESH sort for shadow
-            # rays measured as a loss (any-hit already runs ~3x faster
-            # than closest-hit, PERF.md round 3). shadow_sort instead
-            # REUSES the bounce permutation — grouping for one
-            # gather + scatter, no key/argsort.
             if partition is not None:
                 _, pp_s, _, _ = _ptrace(
                     part_table, part_bounds, so, sd, st_, shadow_live,
                     axis_name=partition_axis, num_devices=num_chips,
                     stack_depth=stack_depth, leaf_size=leaf_size,
-                    packet_size=max(packet_size, 128), any_hit=True,
-                    interpret=jax.default_backend() != "tpu")
+                    packet_size=max(packet_size, 128), any_hit=True)
                 occluded = pp_s >= 0
-            elif shared_perm is not None:
-                from gpupathtracer_tpu.ops.tsort import trace_occluded_tsort
-                occluded = trace_occluded_tsort(
-                    scene, so, sd, st_, shadow_live, stack_depth=stack_depth,
-                    leaf_size=leaf_size,
-                    packet_size=max(packet_size, 128),
-                    fused_pair=fused_pair, perm=shared_perm,
-                    inv=shared_inv)
             else:
-                # Ungrouped occlusion: fused-pair pops ON by default for
-                # SMALL tables — r5 paired any-hit A/Bs measured -20%
-                # (bathroom 4M rays, 2 runs); big tables excluded
-                # (sponza coherent any-hit measured a 12% LOSS, and its
-                # incoherent bounce shadows ride the grouped tsort path
-                # above, which stays on cfg.fused_pair).
-                fp_occ = fused_pair_occl \
-                    and scene.bvh.node_rows.shape[0] < 8192
                 occluded = trace_occluded(scene, so, sd, st_, shadow_live,
                                           stack_depth=stack_depth,
                                           leaf_size=leaf_size,
                                           traversal=traversal,
-                                          packet_size=packet_size,
-                                          fused_pair=(fused_pair
-                                                      or fp_occ))
+                                          packet_size=packet_size)
             contribution = contribution + jnp.where(
                 (shadow_live & ~occluded)[..., None],
                 ls.throughput * ls.emission, 0.0)
@@ -405,14 +326,11 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
         # --- BSDF sampling + throughput update (Iterative.comp:282-284) ---
         if max_bounces == 0:
             # Pure direct lighting: no path continues past this bounce, so
-            # the continuation sample, delta handling, and RR are dead work
-            # (~13 ms of the 64 ms direct frame at 640x360, measured).
+            # the continuation sample, delta handling, and RR are dead work.
             return Carry(i=c.i + 1, key=key, o=pos, d=c.d,
                          throughput=c.throughput, contribution=contribution,
                          pdf0=c.pdf0, pdf1=c.pdf1, last_pos=pos,
-                         alive=jnp.zeros((nw,), bool), rays=rays,
-                         perm=(shared_perm if tsort_alternate
-                               and shared_perm is not None else c.perm))
+                         alive=jnp.zeros((nw,), bool), rays=rays)
 
         inter_b, pdf0, pdf1 = generate_importance_sample(
             mat, inter, rnd[:, 3], rnd[:, 4:6], model)
@@ -466,9 +384,7 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
         return Carry(i=c.i + 1, key=key, o=new_o, d=new_d,
                      throughput=throughput, contribution=contribution,
                      pdf0=pdf0, pdf1=pdf1, last_pos=pos, alive=alive,
-                     rays=rays,
-                     perm=(shared_perm if tsort_alternate
-                           and shared_perm is not None else c.perm))
+                     rays=rays)
 
     # --- Bounce-epoch live-path compaction --------------------------------
     # Role of the persistent-thread refill (Iterative.comp:174-210, 261-300):
@@ -480,9 +396,8 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
     # live count fits the next buffer, and every survivor continues there.
     widths = [n]
     # max_bounces == 0 (pure direct lighting) kills every path at the end
-    # of the peeled bounce; without this gate the phase chain still paid
-    # ~7 argsorts + gathers on an all-dead wavefront (~70 ms of the 81 ms
-    # direct frame at 640x360, measured).
+    # of the peeled bounce; without this gate the phase chain would still
+    # pay its argsorts and gathers on an all-dead wavefront.
     if compaction and max_bounces > 0:
         for div in compaction_divs:
             wn = max(n // div, compaction_min)
@@ -492,27 +407,18 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
     def cap(c: Carry):
         return c.i <= max_bounces + 1
 
-    def trav_for(width: int) -> str:
-        """Bounce-phase traversal: "same" keeps the primary choice; a name
-        (e.g. "treelet") applies to bounce rays at widths where the binning
-        machinery amortizes (>= treelet_min), falling back below."""
-        if bounce_traversal == "same" or width < treelet_min:
-            return traversal
-        return bounce_traversal
-
     total = None
     src = None  # compacted lane -> film lane; None while at full width
-    # Bounce 0 peeled: primary rays are coherent — always the plain kernel.
-    c = body(init, traversal)
+    # Bounce 0 peeled out of the loop.
+    c = body(init)
     for j in range(len(widths)):
         nxt = widths[j + 1] if j + 1 < len(widths) else None
-        bodyj = partial(body, trav=trav_for(widths[j]))
         if nxt is None:
             c = jax.lax.while_loop(lambda c: g_alive_any(c) & cap(c),
-                                   bodyj, c)
+                                   body, c)
         else:
             c = jax.lax.while_loop(
-                lambda c: (g_alive_max(c) > nxt) & cap(c), bodyj, c)
+                lambda c: (g_alive_max(c) > nxt) & cap(c), body, c)
         # Fold this phase's contributions back into film-lane space.
         if src is None:
             total = c.contribution
@@ -526,22 +432,15 @@ def render_sample_impl(scene, cam: CameraParams, pixel_x, pixel_y, key,
                       contribution=jnp.zeros((nxt, 3), jnp.float32),
                       pdf0=c.pdf0[order], pdf1=c.pdf1[order],
                       last_pos=c.last_pos[order], alive=c.alive[order],
-                      rays=c.rays,
-                      # Stale perm contents index pre-gather lanes:
-                      # reset to identity at the new width.
-                      perm=(jnp.arange(nxt, dtype=jnp.int32)
-                            if tsort_alternate
-                            else jnp.zeros((0,), jnp.int32)))
+                      rays=c.rays)
     return total, c.rays
 
 
 _STATICS = (
     "width", "height", "model", "max_bounces", "stack_depth", "leaf_size",
-    "nee", "traversal", "bounce_traversal", "fused_pair",
-    "fused_pair_occl", "treelet_min",
-    "packet_size",
+    "nee", "traversal", "packet_size",
     "textured", "mips", "sun", "sun_mode", "sort_rays", "shadow_rev",
-    "shadow_sort", "tsort_alternate", "delta",
+    "delta",
     "compaction", "compaction_divs", "compaction_min", "sampler",
     "partition_axis", "num_chips")
 
@@ -554,9 +453,9 @@ def render_sample_batch(scene, cam, pixel_x, pixel_y, key, spp: int = 1,
                         sample_idx=0, **statics):
     """spp samples per pixel in ONE dispatch (fori_loop over samples).
 
-    Amortizes the ~3.5 ms per-dispatch overhead that dominates low-
-    resolution real-time frames (TODO r2 / VERDICT r2 #4) — the role of
-    the reference presenting every 1-spp dispatch is traded for spp/s.
+    Amortizes the per-dispatch overhead of low-resolution real-time
+    frames — the role of the reference presenting every 1-spp dispatch is
+    traded for spp/s.
     RNG: sample i uses fold_in(key, i) and LD index sample_idx + i, so a
     batch of spp frames and spp separate frames draw from the same
     per-sample streams (not bitwise-identical to the unbatched path,

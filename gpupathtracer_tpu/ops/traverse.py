@@ -1,22 +1,28 @@
-"""Vectorized wide-BVH traversal in JAX (XLA-compiled, TPU-first).
+"""Wide-BVH traversal: the per-lane XLA reference, and the one place that
+picks a traversal for the backend.
 
-Redesign of the reference's per-thread stack traversals (IfIfClosestHit /
+Per-lane reference: a redesign of the reference's per-thread stack traversals (IfIfClosestHit /
 IfIfAnyHit, src/shaders/common/BVH.glsl:634-854): instead of divergent
 per-lane loops, the whole ray wavefront advances in lockstep through a
 bounded `lax.while_loop`. Each step pops one stack entry per lane; lanes
 holding an internal node gather its [8, 6] child-bounds block and slab-test
-all 8 children on the VPU (near-child-first push order, cf. BVH.glsl:707-717),
+all 8 children at once (near-child-first push order, cf. BVH.glsl:707-717),
 lanes holding a leaf run up to `leaf_size` Moller-Trumbore tests. Finished
 lanes idle (masked) until the chunk drains — callers bound the waste by
 chunking the wavefront.
 
 The traversal stack is a fixed [N, DEPTH] int32 array: no recursion, no
 atomics, static shapes throughout.
+
+Dispatch (`resolve_traversal`): on a GPU backend every ray goes through the
+per-thread CUDA kernel (ops/cuda_traverse.py); on the CPU backend through
+the XLA packet traversal (ops/packet_traverse.py). Both read the merged
+node/leaf table; trees that table cannot hold (arity other than 8, leaves
+over 10 triangles) take the per-lane traversal on every backend.
 """
 
 from __future__ import annotations
 
-from functools import partial
 from typing import NamedTuple
 
 import jax
@@ -204,25 +210,29 @@ def count_entry_visits(wbvh, tri_geom, o, d, t_max, bucket_map,
     return out[4]
 
 
-def resolve_traversal(name: str) -> str:
-    """Resolve the "auto" traversal choice against the active backend.
+TRAVERSALS = ("cuda", "packet", "perray")
 
-    "pallas" (the on-core kernel) is the TPU fast path; elsewhere it would
-    run in the Pallas interpreter, so "auto" picks the XLA packet path on
-    non-TPU backends (tests, CPU debugging).
-    """
+
+def resolve_traversal(name: str = "auto") -> str:
+    """The traversal to run on the active backend.
+
+    "auto" is the CUDA kernel on a GPU and the XLA packet path elsewhere.
+    Asking for "cuda" off the GPU raises rather than running something
+    else."""
+    backend = jax.default_backend()
     if name == "auto":
-        return "pallas" if jax.default_backend() == "tpu" else "packet"
+        return "cuda" if backend == "gpu" else "packet"
+    if name not in TRAVERSALS:
+        raise ValueError(f"unknown traversal {name!r}; expected 'auto' or "
+                         f"one of {TRAVERSALS}")
+    if name == "cuda" and backend != "gpu":
+        raise ValueError(f"the CUDA traversal needs a GPU backend, not "
+                         f"{backend!r}")
     return name
 
 
 def _pad_rays(o, d, t_max, active, multiple: int):
-    """Pad a wavefront to a multiple of the packet size with dead rays.
-
-    Replaces the old _fit_packet_size shrink-to-divisor heuristic, which
-    silently degraded to tiny packets for awkward N (e.g. primes). Fully
-    dead packets cost ~nothing in either packet implementation (compaction
-    skips them; the Pallas kernel exits before the first pop)."""
+    """Pad a wavefront to a multiple of the packet size with dead rays."""
     n = o.shape[0]
     pad = (-n) % multiple
     if pad:
@@ -235,136 +245,65 @@ def _pad_rays(o, d, t_max, active, multiple: int):
     return o, d, t_max, active, n
 
 
-def remap_cluster_prims(scene, prim):
-    """Cluster-local prim ids (cidx * Tc + slot) -> global triangle ids.
+def trace_rows(rows, o, d, t_max, active, *, traversal: str,
+               stack_depth: int, leaf_size: int, packet_size: int = 128,
+               any_hit: bool = False, root=None):
+    """Trace [N] rays against a merged [M, 128] node/leaf table with the
+    "cuda" or "packet" traversal; `root` is a scalar initial stack entry
+    (default 0). Returns (t, prim, u, v, pops): [N] hit arrays (prim >= 0
+    on a hit; any-hit lanes report occlusion the same way) and an i32
+    scalar of traversal work, stack pops summed over rays (cuda) or over
+    packets (packet)."""
+    if traversal == "cuda":
+        from gpupathtracer_tpu.ops.cuda_traverse import traverse_rows_cuda
+        t, prim, u, v, pops = traverse_rows_cuda(
+            rows, o, d, t_max, active, stack_depth=stack_depth,
+            any_hit=any_hit, root=root)
+        return t, prim, u, v, jnp.sum(pops, dtype=jnp.int32)
+    if traversal != "packet":
+        raise ValueError(f"trace_rows runs 'cuda' or 'packet', not "
+                         f"{traversal!r}")
+    from gpupathtracer_tpu.ops.packet_traverse import traverse_packets
+    ps = min(packet_size, o.shape[0])
+    o, d, t_max, active, n = _pad_rays(o, d, t_max, active, ps)
+    t, prim, u, v, pops = traverse_packets(
+        rows, o, d, t_max, active, stack_depth=stack_depth,
+        leaf_size=leaf_size, packet_size=ps, any_hit=any_hit, root=root)
+    return t[:n], prim[:n], u[:n], v[:n], jnp.sum(pops, dtype=jnp.int32)
 
-    The dense cluster kernel (bvh/cluster.py + _kernel_cluster) returns
-    slot-local ids; one [N] gather through cluster_refs resolves them.
-    Padding slots never win a hit, so the clip is only gather safety."""
-    refs = scene.bvh.cluster_refs
-    return jnp.where(prim >= 0,
-                     refs[jnp.clip(prim, 0, refs.shape[0] - 1)], -1)
 
-
-def _pallas_hit(scene, o, d, t_max, active, *, stack_depth: int,
-                leaf_size: int, packet_size: int, any_hit_mode: bool,
-                interleave: int = 1, fused_pair: bool = False):
-    from gpupathtracer_tpu.ops.pallas_traverse import LANES, traverse_pallas
-    cluster = getattr(scene.bvh, "cluster_rows", None) is not None
-    if cluster:  # dense cluster leaves: single-pop kernel only
-        interleave, fused_pair = 1, False
-    K = max(LANES, (min(packet_size, o.shape[0]) // LANES) * LANES)
-    o, d, t_max, active, n = _pad_rays(o, d, t_max, active, K * interleave)
-    P = o.shape[0] // K
-    interpret = jax.default_backend() != "tpu"
-    t, prim, u, v = traverse_pallas(
-        scene.bvh.node_rows, o.reshape(P, K, 3), d.reshape(P, K, 3),
-        t_max.reshape(P, K), active.reshape(P, K),
-        arity=scene.bvh.child_entry.shape[1],
-        stack_depth=stack_depth, leaf_size=leaf_size,
-        # Occlusion queries skip the near-first sort network: the packed-
-        # bits push is ~3x cheaper per pop and ordering buys any-hit
-        # nothing (measured 14.5 vs 5.0 Mrays/s incoherent, PERF.md r3).
-        ordered=not any_hit_mode,
-        any_hit=any_hit_mode, interleave=interleave,
-        fused_pair=fused_pair, interpret=interpret,
-        cluster_rows=scene.bvh.cluster_rows if cluster else None)
-    prim = prim.reshape(-1)[:n]
-    if cluster and not any_hit_mode:
-        # Occlusion consumers read only prim >= 0, which the cluster-
-        # local id already answers — skip the [N] remap gather.
-        prim = remap_cluster_prims(scene, prim)
-    return Hit(t=t.reshape(-1)[:n], prim=prim,
-               u=u.reshape(-1)[:n], v=v.reshape(-1)[:n])
+def _rows_hold(scene, leaf_size: int) -> bool:
+    """Whether the merged table holds this tree: 8-wide nodes and leaves
+    of one row (at most 10 triangles)."""
+    return scene.bvh.child_entry.shape[1] == 8 and leaf_size <= 10
 
 
 def trace_closest(scene, o, d, t_max, active, *, stack_depth: int,
-                  leaf_size: int, traversal: str = "packet",
-                  packet_size: int = 128, interleave: int = 1,
-                  fused_pair: bool = False) -> Hit:
-    """Dispatch between traversal implementations ("pallas" on-core kernel,
-    "tsort" treelet-sorted packets, "treelet" subtree-binned rounds,
-    "packet" XLA shared-stack packets, "perray" lockstep)."""
+                  leaf_size: int, traversal: str = "auto",
+                  packet_size: int = 128) -> Hit:
+    """Closest-hit query through the traversal chosen for the backend."""
     traversal = resolve_traversal(traversal)
-    if traversal == "treelet":
-        from gpupathtracer_tpu.ops.treelet import trace_closest_treelet
-        return trace_closest_treelet(scene, o, d, t_max, active,
-                                     stack_depth=stack_depth,
-                                     leaf_size=leaf_size,
-                                     packet_size=max(packet_size, 128))
-    if traversal == "tsort":
-        from gpupathtracer_tpu.ops.tsort import trace_closest_tsort
-        return trace_closest_tsort(scene, o, d, t_max, active,
-                                   stack_depth=stack_depth,
-                                   leaf_size=leaf_size,
-                                   packet_size=max(packet_size, 128),
-                                   interleave=interleave,
-                                   fused_pair=fused_pair)
-    if traversal == "pallas":
-        return _pallas_hit(scene, o, d, t_max, active,
-                           stack_depth=stack_depth, leaf_size=leaf_size,
-                           packet_size=packet_size, any_hit_mode=False,
-                           interleave=2 if fused_pair else interleave,
-                           fused_pair=fused_pair)
-    if traversal == "packet":
-        if (scene.bvh.child_entry.shape[1] != 8 or leaf_size > 10
-                or getattr(scene.bvh, "cluster_rows", None) is not None):
-            # The XLA packet kernel is 8-wide, single-row-leaf only, and
-            # reads the merged MT-leaf node_rows (which cluster scenes
-            # replace); per-lane is layout-agnostic — it traverses the
-            # full child_bounds/child_entry tree that cluster scenes keep.
-            return closest_hit(scene.bvh, scene.tri_geom, o, d, t_max,
-                               active, stack_depth=stack_depth,
-                               leaf_size=leaf_size)
-        from gpupathtracer_tpu.ops.packet_traverse import closest_hit_packets
-        ps = min(packet_size, o.shape[0])
-        o, d, t_max, active, n = _pad_rays(o, d, t_max, active, ps)
-        hit = closest_hit_packets(scene.bvh, o, d, t_max, active,
-                                  stack_depth=stack_depth,
-                                  leaf_size=leaf_size, packet_size=ps)
-        return Hit(t=hit.t[:n], prim=hit.prim[:n], u=hit.u[:n], v=hit.v[:n])
-    return closest_hit(scene.bvh, scene.tri_geom, o, d, t_max, active,
-                       stack_depth=stack_depth, leaf_size=leaf_size)
+    if traversal == "perray" or not _rows_hold(scene, leaf_size):
+        return closest_hit(scene.bvh, scene.tri_geom, o, d, t_max, active,
+                           stack_depth=stack_depth, leaf_size=leaf_size)
+    t, prim, u, v, _ = trace_rows(
+        scene.bvh.node_rows, o, d, t_max, active, traversal=traversal,
+        stack_depth=stack_depth, leaf_size=leaf_size,
+        packet_size=packet_size)
+    return Hit(t=t, prim=prim, u=u, v=v)
 
 
 def trace_occluded(scene, o, d, t_max, active, *, stack_depth: int,
-                   leaf_size: int, traversal: str = "packet",
-                   packet_size: int = 128, interleave: int = 1,
-                   fused_pair: bool = False):
-    """Dispatch any-hit/occlusion query."""
+                   leaf_size: int, traversal: str = "auto",
+                   packet_size: int = 128):
+    """Any-hit/occlusion query: [N] bool, True iff something lies within
+    (0, t_max)."""
     traversal = resolve_traversal(traversal)
-    if traversal == "treelet":
-        from gpupathtracer_tpu.ops.treelet import trace_occluded_treelet
-        return trace_occluded_treelet(scene, o, d, t_max, active,
-                                      stack_depth=stack_depth,
-                                      leaf_size=leaf_size,
-                                      packet_size=max(packet_size, 128))
-    if traversal == "tsort":
-        from gpupathtracer_tpu.ops.tsort import trace_occluded_tsort
-        return trace_occluded_tsort(scene, o, d, t_max, active,
-                                    stack_depth=stack_depth,
-                                    leaf_size=leaf_size,
-                                    packet_size=max(packet_size, 128),
-                                    interleave=interleave,
-                                    fused_pair=fused_pair)
-    if traversal == "pallas":
-        hit = _pallas_hit(scene, o, d, t_max, active,
-                          stack_depth=stack_depth, leaf_size=leaf_size,
-                          packet_size=packet_size, any_hit_mode=True,
-                          interleave=2 if fused_pair else interleave,
-                          fused_pair=fused_pair)
-        return hit.prim >= 0
-    if traversal == "packet":
-        if (scene.bvh.child_entry.shape[1] != 8 or leaf_size > 10
-                or getattr(scene.bvh, "cluster_rows", None) is not None):
-            return any_hit(scene.bvh, scene.tri_geom, o, d, t_max, active,
-                           stack_depth=stack_depth, leaf_size=leaf_size)
-        from gpupathtracer_tpu.ops.packet_traverse import any_hit_packets
-        ps = min(packet_size, o.shape[0])
-        o, d, t_max, active, n = _pad_rays(o, d, t_max, active, ps)
-        occ = any_hit_packets(scene.bvh, o, d, t_max, active,
-                              stack_depth=stack_depth, leaf_size=leaf_size,
-                              packet_size=ps)
-        return occ[:n]
-    return any_hit(scene.bvh, scene.tri_geom, o, d, t_max, active,
-                   stack_depth=stack_depth, leaf_size=leaf_size)
+    if traversal == "perray" or not _rows_hold(scene, leaf_size):
+        return any_hit(scene.bvh, scene.tri_geom, o, d, t_max, active,
+                       stack_depth=stack_depth, leaf_size=leaf_size)
+    _, prim, _, _, _ = trace_rows(
+        scene.bvh.node_rows, o, d, t_max, active, traversal=traversal,
+        stack_depth=stack_depth, leaf_size=leaf_size,
+        packet_size=packet_size, any_hit=True)
+    return prim >= 0

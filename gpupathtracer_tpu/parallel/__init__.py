@@ -1,8 +1,7 @@
-from gpupathtracer_tpu.parallel.mesh import (
-    make_device_mesh, render_sample_mega_sharded, render_sample_sharded)
+from gpupathtracer_tpu.parallel.mesh import (make_device_mesh,
+                                             render_sample_sharded)
 from gpupathtracer_tpu.parallel.partition import (shard_partition,
                                                   trace_closest_partitioned)
 
 __all__ = ["make_device_mesh", "render_sample_sharded",
-           "render_sample_mega_sharded",
            "shard_partition", "trace_closest_partitioned"]

@@ -1,7 +1,7 @@
 """Multi-chip rendering over a jax.sharding.Mesh.
 
 The reference is single-GPU; its only "collectives" are one atomicAdd ray
-counter and memory barriers (SURVEY.md §2.5). The TPU-native scaling story:
+counter and memory barriers (SURVEY.md §2.5). The scaling story here:
 
   - the *scene* (triangles, BVH, materials, env) is replicated per chip;
   - the *pixel space* is sharded over the mesh axis "pixels" (each chip owns
@@ -9,18 +9,19 @@ counter and memory barriers (SURVEY.md §2.5). The TPU-native scaling story:
   - the *sample space* is sharded over the mesh axis "samples" (each chip
     renders an independent threefry stream of the same pixels);
   - per-pixel radiance is `psum`ed over the samples axis — the one
-    collective, riding ICI — and the per-frame ray counter is `psum`ed over
-    the whole mesh.
+    collective — and the per-frame ray counter is `psum`ed over the whole
+    mesh.
 
-One sharded frame therefore accumulates `samples_axis` spp. A v5e-8 maps
-naturally to mesh (2, 4) or (1, 8); both compile on a CPU-device mesh for
-testing (tests/test_sharding.py).
+One sharded frame therefore accumulates `samples_axis` spp. The mesh shape
+follows the algorithm alone: four cards joined all to all take (4,) or
+(2, 2) equally well, and both compile on a CPU-device mesh for testing
+(tests/test_sharding.py).
 
-Multi-host: map "pixels" to the cross-host (DCN) dimension — radiance is
-psum'ed over "samples" only, so no film bytes ever cross DCN (the single
+Multi-host: map "pixels" to the cross-host dimension — radiance is psum'ed
+over "samples" only, so no film bytes ever cross hosts (the single
 pixels-axis collective is the scalar ray counter). Pinned at HLO level by
-tests/test_sharding.py::test_pixels_axis_radiance_stays_local. On a real
-multi-host pod: jax.distributed.initialize(), then
+tests/test_sharding.py::test_pixels_axis_radiance_stays_local. On several
+hosts: jax.distributed.initialize(), then
 make_device_mesh((samples_per_host, num_hosts)).
 """
 
@@ -88,50 +89,4 @@ def render_sample_sharded(mesh: Mesh, scene, cam, pixel_x, pixel_y, key,
         return contribution, rays
 
     return step(scene, cam, pixel_x, pixel_y, key,
-                jnp.asarray(sample_base, jnp.int32))
-
-
-def render_sample_mega_sharded(mesh: Mesh, scene, mega_tables, cam,
-                               pixel_x, pixel_y, key, spp_per_chip: int = 1,
-                               sample_base=0,
-                               **static) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Config-4 sample-axis composition: the MEGAKERNEL (with in-kernel
-    path regeneration, ops/megakernel.py) sharded over the "samples"
-    mesh axis — the designed single-chip escape for the bathroom
-    1024-spp benchmark (PERF.md round 5: 95 ms/sample measured -> ~12 s
-    modeled on a v5e-8).
-
-    Each chip renders the FULL pixel set with its own spp_per_chip
-    sample slice (keys folded by samples-axis index); the one collective
-    is the psum of contributions + ray counters over "samples", riding
-    ICI. Pixels stay replicated — the megakernel's packets want whole
-    wavefronts, and the radiance psum is the only cross-chip traffic.
-    Returns ([N, 3] radiance summed over samples-axis x spp_per_chip
-    samples, scalar rays)."""
-    from gpupathtracer_tpu.ops.megakernel import render_sample_mega
-
-    axis_names = mesh.axis_names
-    has_samples = "samples" in axis_names
-
-    @partial(jax.shard_map, mesh=mesh,
-             in_specs=(P(), P(), P(), P(), P(), P(), P()),
-             out_specs=(P(), P()),
-             check_vma=False)
-    def step(scene, tables, cam, px, py, key, sample_base):
-        sidx = sample_base
-        if has_samples:
-            ax = jax.lax.axis_index("samples")
-            key = jax.random.fold_in(key, ax)
-            sidx = sample_base + ax * spp_per_chip
-        contribution, rays = render_sample_mega(
-            scene, tables, cam, px, py, key, sample_idx=sidx,
-            spp=spp_per_chip, **static)
-        if has_samples:
-            contribution = jax.lax.psum(contribution, "samples")
-            rays = jax.lax.psum(rays, "samples")
-        if "pixels" in axis_names:
-            rays = jax.lax.pmax(rays, "pixels")
-        return contribution, rays
-
-    return step(scene, mega_tables, cam, pixel_x, pixel_y, key,
                 jnp.asarray(sample_base, jnp.int32))

@@ -1,10 +1,10 @@
-"""Partitioned multi-chip traversal — rays migrate, chips own subtrees.
+"""Partitioned multi-device traversal — rays migrate, devices own subtrees.
 
 Counterpart of bvh/partition.py at trace time: the merged BVH table is
 split into D per-device subtree tables (sharded over the mesh's "chips"
-axis, each small enough to pin in VMEM), and ray shards ROTATE around the
-ICI ring with `jax.lax.ppermute`. Hop s has chip c traverse the resident
-ray block against its local subtree, masked to rays whose slab entry into
+axis), and ray shards ROTATE between the devices with `jax.lax.ppermute`.
+Hop s has chip c traverse the resident ray block against its local
+subtree, masked to rays whose slab entry into
 this chip's forest bounds is closer than their current best hit; after D
 hops every block is home with the globally closest hit.
 
@@ -12,7 +12,7 @@ Two migration schemes, both static-shaped:
 
 - RING (trace_partitioned_local, the default): shards rotate via
   ppermute, D hops; uniform per-hop bandwidth (48 B/ray * shard size *
-  (D-1) hops), the simplest thing ICI can possibly do. The pruning mask
+  (D-1) hops), the simplest exchange there is. The pruning mask
   plays the role of near-first descent across chips: most rays are
   masked on most hops (measured V ~ 1.8 of 8 actual subtree visits per
   incoherent ray). The dead weight — bytes and forced shard/chip barrier
@@ -22,16 +22,12 @@ Two migration schemes, both static-shaped:
   one all_to_all per round; receiver capacity is credit-guaranteed (an
   all_gather of free-slot counts), rays denied transport retry, so no
   demand distribution can drop a ray. ~44 B * (V+1) per ray total and
-  ~V+2 barrier rounds instead of D. Unlike the measured-loss treelet
-  regrouping (PERF.md: XLA indexed-op floor ~30 ns/element on ONE chip's
-  hot path), the routed exchange's sort/gather glue runs once per
-  multi-chip hop on D-fold smaller shards, against kernel work that is
-  hundreds of times larger.
+  ~V+2 barrier rounds instead of D. Its sort/gather glue runs once per
+  hop on D-fold smaller shards. On devices joined all to all (NVLink)
+  every destination costs the same, which suits this scheme.
 
-Cost model + measured routing statistics in PERF.md §partitioned-traversal.
-
-Role in the reference: none — single GPU. This is the pod-scale design the
-dispatch grid (Renderer.cpp:660) cannot express.
+Role in the reference: none — single GPU. This is the multi-device design
+the dispatch grid (Renderer.cpp:660) cannot express.
 """
 
 from __future__ import annotations
@@ -45,7 +41,8 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from gpupathtracer_tpu.bvh.partition import Partition, build_partition
-from gpupathtracer_tpu.ops.traverse import Hit, _safe_inv
+from gpupathtracer_tpu.ops.traverse import (Hit, _safe_inv,
+                                            resolve_traversal, trace_rows)
 
 
 class RouteInfo(NamedTuple):
@@ -81,49 +78,24 @@ def shard_partition(part: Partition, mesh: Mesh, axis: str = "chips"):
 
 
 def _local_trace(table, o, d, t_max, active, *, stack_depth, leaf_size,
-                 packet_size, any_hit, interpret, root=None,
-                 with_pops=False):
-    """One chip's traversal of its local subtree (root = synthetic row 0,
+                 packet_size, any_hit, root=None):
+    """One device's traversal of its local subtree (root = synthetic row 0,
     or the scalar `root` entry — the steady root on hops >= 1 when hot
-    subtrees are replicated). with_pops appends the summed kernel pop
-    count (node + leaf) — the actual traversal work, which the routed-ray
-    count cannot stand in for once per-visit table sizes differ (hot
-    replication)."""
-    from gpupathtracer_tpu.ops.pallas_traverse import LANES, traverse_pallas
-    n = o.shape[0]
-    K = max(LANES, (min(packet_size, n) // LANES) * LANES)
-    pad = (-n) % K
-    if pad:
-        o = jnp.concatenate([o, jnp.zeros((pad, 3), o.dtype)])
-        d = jnp.concatenate(
-            [d, jnp.zeros((pad, 3), d.dtype).at[:, 0].set(1.0)])
-        t_max = jnp.concatenate([t_max, jnp.zeros((pad,), t_max.dtype)])
-        active = jnp.concatenate([active, jnp.zeros((pad,), bool)])
-    NP = n + pad
-    Pk = NP // K
-    roots = None if root is None else jnp.full((Pk,), root, jnp.int32)
-    out = traverse_pallas(
-        table, o.reshape(Pk, K, 3), d.reshape(Pk, K, 3),
-        t_max.reshape(Pk, K), active.reshape(Pk, K), roots=roots,
-        stack_depth=stack_depth, leaf_size=leaf_size, any_hit=any_hit,
-        ordered=not any_hit,  # packed-bits push for occlusion (PERF.md)
-        interpret=interpret, with_stats=with_pops)
-    if with_pops:
-        t, prim, u, v, st = out
-        pops = jnp.sum(st[:, :2], dtype=jnp.int32)
-    else:
-        t, prim, u, v = out
-        pops = None
-    return (t.reshape(NP)[:n], prim.reshape(NP)[:n],
-            u.reshape(NP)[:n], v.reshape(NP)[:n], pops)
+    subtrees are replicated), with the traversal chosen for the backend.
+    Also returns the traversal's pop count (nodes + leaves): the actual
+    work, which the routed-ray count cannot stand in for once per-visit
+    table sizes differ (hot replication)."""
+    return trace_rows(table, o, d, t_max, active,
+                      traversal=resolve_traversal("auto"),
+                      stack_depth=stack_depth, leaf_size=leaf_size,
+                      packet_size=packet_size, any_hit=any_hit, root=root)
 
 
 def trace_partitioned_local(table, dev_bounds, o, d, t_max, active, *,
                             axis_name: str, num_devices: int,
                             stack_depth: int, leaf_size: int,
                             packet_size: int = 2048, any_hit: bool = False,
-                            with_stats: bool = False,
-                            interpret: bool = False):
+                            with_stats: bool = False):
     """Ring-rotation traversal; call INSIDE shard_map.
 
     Args:
@@ -137,7 +109,7 @@ def trace_partitioned_local(table, dev_bounds, o, d, t_max, active, *,
     ROUTED into this chip's subtree (`here`), of rays whose best hit
     IMPROVED (`better`), and of kernel POPS (node + leaf — the actual
     traversal work; visits are not comparable when hot replication gives
-    hop 0 a larger root) — the measured inputs of the PERF.md ICI model.
+    hop 0 a larger root) — the inputs of a migration cost model.
     """
     D = num_devices
     me = jax.lax.axis_index(axis_name)
@@ -179,7 +151,7 @@ def trace_partitioned_local(table, dev_bounds, o, d, t_max, active, *,
         tt, pp, uu, vv, np_ = _local_trace(
             table, o_c, d_c, t_c, here, stack_depth=stack_depth,
             leaf_size=leaf_size, packet_size=packet_size, any_hit=any_hit,
-            interpret=interpret, root=root, with_pops=with_stats)
+            root=root)
         better = here & (pp >= 0) & (tt < t_c)
         t_c = jnp.where(better, tt, t_c)
         prim_c = jnp.where(better, pp, prim_c)
@@ -196,7 +168,7 @@ def trace_partitioned_local(table, dev_bounds, o, d, t_max, active, *,
             state = jax.lax.ppermute(state, axis_name, perm)
     # D-1 hops: rotate once more so blocks land back on their origin chip —
     # only the hit payload (t/prim/u/v); o/d/act are dead after the loop,
-    # so shipping them home would waste ~64% of the last hop's ICI bytes.
+    # so shipping them home would waste ~64% of the last hop's bytes.
     t, prim, u, v = jax.lax.ppermute(
         (state[2], state[3], state[4], state[5]), axis_name, perm)
     if with_stats:
@@ -231,14 +203,13 @@ def trace_partitioned_routed(table, dev_bounds, o, d, t_max, active, *,
                              any_hit: bool = False,
                              max_rounds: int | None = None,
                              bucket_cap: int | None = None,
-                             with_stats: bool = False,
-                             interpret: bool = False):
+                             with_stats: bool = False):
     """Demand-ROUTED partitioned traversal; call INSIDE shard_map.
 
     The ring (trace_partitioned_local) rotates every shard through every
-    chip: N*44 B of ICI traffic per hop for D-1 hops, and each hop is a
+    chip: N*44 B of traffic per hop for D-1 hops, and each hop is a
     barrier whose cost the rotation's forced shard/chip pairing sets.
-    Measured (PERF.md): an incoherent ray actually needs V ~= 1.8 of 8
+    Counted on a CPU mesh: an incoherent ray actually needs V ~= 1.8 of 8
     subtree visits, so ~3/4 of the ring's bytes and barrier alignment is
     dead weight that grows linearly with D.
 
@@ -253,29 +224,32 @@ def trace_partitioned_routed(table, dev_bounds, o, d, t_max, active, *,
     transport retry the next round. Finished rays route home and deliver
     their hit payload into the slot-stable output.
 
-    ICI bytes become ~44 B * (visits beyond home + 1) per ray instead of
+    Bytes moved become ~44 B * (visits beyond home + 1) per ray instead of
     44 * (D-1); rounds (each one all_to_all barrier + one local service)
-    replace D ppermute hops. Shapes are static throughout: resident
-    arrays have capacity NR = n + D*B, exchanges are [D, B] buckets.
+    replace D ppermute hops. Rounds repeat (a while loop) until no ray is
+    in flight on any chip: a ray needs up to D transports, and rays denied
+    credit wait, so the count depends on the demand. Shapes are static
+    throughout: resident arrays have capacity NR = n + D*B, exchanges are
+    [D, B] buckets.
 
     Args mirror trace_partitioned_local; additionally
-      max_rounds: unrolled round count (default D + 2). Rays still
-        undelivered after the last round keep their best-so-far hit in
-        the output and are counted in stats row 3 (truncation is
-        detectable, never silent).
+      max_rounds: cap on the exchange rounds (default 8 * D). Rays still
+        undelivered when the cap stops the loop keep their home hop's hit
+        in the output and are counted in the last column of stats row 3
+        (truncation is detectable, never silent).
       bucket_cap: per-destination bucket size B (default ceil(n / D)
         rounded up to a multiple of 8, so D*B >= n — one round can
         offload a whole shard).
     Returns (t, prim, u, v) for the rays that STARTED on this chip; with
     with_stats also a [4, R+1] i32 row: per-round kernel pops (col 0 =
     the home hop), rays transported, rays delivered, rays still in
-    flight at round end.
+    flight at round end (columns past the last round run stay 0).
     """
     D = num_devices
     assert D <= 32, "visited bitmask is uint32"
     me = jax.lax.axis_index(axis_name)
     n = o.shape[0]
-    R = max_rounds if max_rounds is not None else D + 2
+    R = max_rounds if max_rounds is not None else 8 * D
     B = bucket_cap if bucket_cap is not None else -((-n) // D)
     B = max(8, -((-B) // 8) * 8)
     NR = n + D * B
@@ -303,8 +277,7 @@ def trace_partitioned_routed(table, dev_bounds, o, d, t_max, active, *,
     here0 = (tn0 <= tf0) & (tf0 > 0.0) & (tn0 < t) & active
     tt, pp, uu, vv, pops0 = _local_trace(
         table, o, d, t, here0, stack_depth=stack_depth,
-        leaf_size=leaf_size, packet_size=packet_size, any_hit=any_hit,
-        interpret=interpret, root=None, with_pops=True)
+        leaf_size=leaf_size, packet_size=packet_size, any_hit=any_hit)
     better = here0 & (pp >= 0) & (tt < t)
     out_t = jnp.where(better, tt, t)
     out_prim = jnp.where(better, pp, jnp.full((n,), -1, jnp.int32))
@@ -334,14 +307,13 @@ def trace_partitioned_routed(table, dev_bounds, o, d, t_max, active, *,
     pending0 = jnp.any(enter_all & unvisited, axis=1)[:n] & ~done0
     act = jnp.concatenate([pending0, jnp.zeros((pad,), bool)])
 
-    pops_hist = [pops0]
-    sent_hist = [jnp.zeros((), jnp.int32)]
-    dlvr_hist = [jnp.sum(~pending0 & active, dtype=jnp.int32)]
-    live_hist = [jnp.sum(act, dtype=jnp.int32)]
-
+    root = None if sroot is None else sroot[me]
     b_idx = jnp.arange(B, dtype=jnp.int32)
 
-    for _ in range(R):
+    def one_round(carry):
+        (res, act, out_t, out_prim, out_u, out_v, r, _,
+         pops_h, sent_h, dlvr_h, live_h) = carry
+        res = dict(res)
         # (a) route: nearest unvisited needed chip, else home.
         tn_all, enter_all = _chip_slab(steady_b, res["o"], res["d"],
                                        res["t"])
@@ -443,7 +415,6 @@ def trace_partitioned_routed(table, dev_bounds, o, d, t_max, active, *,
 
         # (g) service: every resident ray that still needs THIS chip's
         # steady forest (fresh arrivals and credit-denied stayers alike).
-        root = None if sroot is None else sroot[me]
         tn_me, enter_me = _chip_slab(steady_b[me][None], res["o"],
                                      res["d"], res["t"])
         my_bit = (res["visited"] >> me.astype(jnp.uint32)) & 1
@@ -453,8 +424,7 @@ def trace_partitioned_routed(table, dev_bounds, o, d, t_max, active, *,
         tt, pp, uu, vv, pops_r = _local_trace(
             table, res["o"], res["d"], res["t"], here,
             stack_depth=stack_depth, leaf_size=leaf_size,
-            packet_size=packet_size, any_hit=any_hit,
-            interpret=interpret, root=root, with_pops=True)
+            packet_size=packet_size, any_hit=any_hit, root=root)
         better = here & (pp >= 0) & (tt < res["t"])
         res["t"] = jnp.where(better, tt, res["t"])
         res["prim"] = jnp.where(better, pp, res["prim"])
@@ -463,18 +433,32 @@ def trace_partitioned_routed(table, dev_bounds, o, d, t_max, active, *,
         res["visited"] = res["visited"] | jnp.where(
             here, jnp.uint32(1) << me.astype(jnp.uint32), jnp.uint32(0))
 
-        pops_hist.append(pops_r)
-        sent_hist.append(jnp.sum(valid_send, dtype=jnp.int32))
-        dlvr_hist.append(jnp.sum(in_place, dtype=jnp.int32)
-                         + jnp.sum(dely, dtype=jnp.int32))
-        live_hist.append(jnp.sum(act, dtype=jnp.int32))
+        live = jnp.sum(act, dtype=jnp.int32)
+        r = r + 1
+        pops_h = pops_h.at[r].set(pops_r.astype(jnp.int32))
+        sent_h = sent_h.at[r].set(jnp.sum(valid_send, dtype=jnp.int32))
+        dlvr_h = dlvr_h.at[r].set(jnp.sum(in_place, dtype=jnp.int32)
+                                  + jnp.sum(dely, dtype=jnp.int32))
+        live_h = live_h.at[r].set(live)
+        return (res, act, out_t, out_prim, out_u, out_v, r,
+                jax.lax.psum(live, axis_name),
+                pops_h, sent_h, dlvr_h, live_h)
+
+    # Rounds run until no ray is in flight on any chip; the psum'd count
+    # rides in the carry so every chip runs the same iterations.
+    hist = jnp.zeros((R + 1,), jnp.int32)
+    live0 = jnp.sum(act, dtype=jnp.int32)
+    carry = (res, act, out_t, out_prim, out_u, out_v, jnp.int32(0),
+             jax.lax.psum(live0, axis_name),
+             hist.at[0].set(pops0.astype(jnp.int32)), hist,
+             hist.at[0].set(jnp.sum(~pending0 & active, dtype=jnp.int32)),
+             hist.at[0].set(live0))
+    carry = jax.lax.while_loop(lambda c: (c[6] < R) & (c[7] > 0),
+                               one_round, carry)
+    out_t, out_prim, out_u, out_v = carry[2:6]
 
     if with_stats:
-        stats = jnp.stack([
-            jnp.stack([p.astype(jnp.int32) for p in pops_hist]),
-            jnp.stack(sent_hist), jnp.stack(dlvr_hist),
-            jnp.stack(live_hist)])
-        return out_t, out_prim, out_u, out_v, stats
+        return out_t, out_prim, out_u, out_v, jnp.stack(carry[8:12])
     return out_t, out_prim, out_u, out_v
 
 
@@ -501,9 +485,7 @@ def strip_scene_bvh(scene):
         child_bounds=b.child_bounds[:1], child_entry=b.child_entry[:1],
         refs=b.refs[:1], node_rows=b.node_rows[:1],
         packet_entry=(b.packet_entry[:1]
-                      if b.packet_entry is not None else None),
-        cut_entry=b.cut_entry[:1] if b.cut_entry is not None else None,
-        cut_bounds=b.cut_bounds[:1] if b.cut_bounds is not None else None))
+                      if b.packet_entry is not None else None)))
 
 
 def render_sample_partitioned(mesh: Mesh, tables, dev_bounds, scene, cam,
@@ -514,16 +496,15 @@ def render_sample_partitioned(mesh: Mesh, tables, dev_bounds, scene, cam,
     riding the ppermute ring (models/wavefront.py partition mode).
 
     The distributed-memory counterpart of parallel/mesh.py's replicated
-    sharding: D chips hold D-fold smaller resident trees — the regime
-    where the packet kernel beats the throughput target (PERF.md
-    scene-size curve) — at the cost of ~44 B/ray/hop of ICI traffic.
+    sharding: D devices hold D-fold smaller resident trees, at the cost
+    of ~44 B/ray/hop of interconnect traffic.
 
     pixel_x/pixel_y are the FULL ray-ordered arrays [N]; N must divide
     the chips axis. Returns ([N, 3] radiance, scalar rays traced).
 
     With a 2-axis mesh ("samples", "chips") the step composes
-    data-parallel sample sharding OVER the scene partition — the full
-    v5e-8 shape (e.g. 2 sample replicas x 4 subtree owners): each
+    data-parallel sample sharding OVER the scene partition (e.g. 2
+    sample replicas x 2 subtree owners on four devices): each
     samples-row renders an independent spp of the same pixels, the ring
     collectives stay within each row's chips sub-axis, and contributions
     psum over "samples". Callers then treat the result as
@@ -568,8 +549,7 @@ def trace_closest_partitioned(mesh: Mesh, tables, dev_bounds, o, d, t_max,
                               axis: str = "chips",
                               routing: str = "ring",
                               max_rounds: int | None = None,
-                              bucket_cap: int | None = None,
-                              interpret: bool | None = None):
+                              bucket_cap: int | None = None):
     """shard_map wrapper: full [N] rays in, full [N] Hit out (N must divide
     the chips axis). with_stats additionally returns per-chip counters:
     routing="ring" gives a [D, 3, D] i32 array of per-(SERVING-chip, hop)
@@ -580,8 +560,6 @@ def trace_closest_partitioned(mesh: Mesh, tables, dev_bounds, o, d, t_max,
     all_to_all exchange, trace_partitioned_routed) gives [D, 4, R+1]:
     per-(chip, round) kernel pops, rays transported, rays delivered, and
     rays still in flight (column 0 is the home hop)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     D = mesh.shape[axis]
     n_stats = (P(axis),) if with_stats else ()
 
@@ -596,15 +574,13 @@ def trace_closest_partitioned(mesh: Mesh, tables, dev_bounds, o, d, t_max,
                 num_devices=D, stack_depth=stack_depth,
                 leaf_size=leaf_size, packet_size=packet_size,
                 any_hit=any_hit, max_rounds=max_rounds,
-                bucket_cap=bucket_cap, with_stats=with_stats,
-                interpret=interpret)
+                bucket_cap=bucket_cap, with_stats=with_stats)
         else:
             out = trace_partitioned_local(
                 table[0], bounds, o_l, d_l, tm_l, act_l, axis_name=axis,
                 num_devices=D, stack_depth=stack_depth,
                 leaf_size=leaf_size, packet_size=packet_size,
-                any_hit=any_hit, with_stats=with_stats,
-                interpret=interpret)
+                any_hit=any_hit, with_stats=with_stats)
         if with_stats:
             t_, p_, u_, v_, cnt = out
             return t_, p_, u_, v_, cnt[None]  # [1, ...] -> gathers per chip

@@ -52,8 +52,7 @@ def sample_env(env: EnvMap, directions) -> jnp.ndarray:
     h, w = img.shape[0], img.shape[1]
     if h == 1 and w == 1:
         # GENERATE COLOR environments are a 1x1 map: skip the 4 bilinear
-        # gathers (full-width, every bounce — ~30 ns/row each, a real
-        # slice of the frame on the benchmark configs) and broadcast.
+        # gathers (full-width, every bounce) and broadcast.
         return jnp.broadcast_to(img[0, 0], directions.shape)
     u, v = dir_to_equirect_uv(directions)
     # v=0 is the bottom (asin(-1)); image row 0 is stored as the bottom row.

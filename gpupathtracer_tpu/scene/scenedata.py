@@ -2,8 +2,8 @@
 
 Role of Scene::LoadScene (src/core/Scene.cpp:233-357): load geometry, build
 the SBVH, build the emitter CDF, pack material/triangle/light arrays, upload.
-On TPU "upload" = jnp device arrays in a pytree; the scene is replicated per
-chip and the ray/sample space is what gets sharded (SURVEY.md §2.5).
+Here "upload" = jnp device arrays in a pytree; the scene is replicated per
+device and the ray/sample space is what gets sharded (SURVEY.md §2.5).
 """
 
 from __future__ import annotations
@@ -32,9 +32,8 @@ class SceneData(NamedTuple):
     tri_uv: jnp.ndarray        # [T, 3, 2]
     tri_mat: jnp.ndarray       # [T] i32
     # Packed per-triangle shading row: ONE [T, 16] gather per bounce where
-    # the integrator used three (normal / uv / mat id) — XLA row gathers
-    # cost ~30 ns each regardless of width (PERF.md), so the hot loop pays
-    # per-ROW, not per-column. Cols 0:3 normal, 3:9 uv (3 x 2), 9 mat-id
+    # the integrator used three (normal / uv / mat id): a gather costs per
+    # ROW, not per column. Cols 0:3 normal, 3:9 uv (3 x 2), 9 mat-id
     # bits (i32 bit-cast), rest pad.
     tri_shade: jnp.ndarray     # [T, 32] f32 (shade cols 0:16, mat row 16:32)
     # Packed per-material row (same one-gather rationale): 0:3 albedo,
@@ -151,34 +150,10 @@ def _upload(soup, table, idx, cdf, total_area, wide, stats, env, cfg,
                                dtype=np.int32)[:, None]
     stack_depth = min(max(stats.max_depth * (cfg.wide_arity - 1) + 2, 8),
                       cfg.stack_depth * 4)
-    if wide.node_rows is None and getattr(cfg, "cluster_tris", 0):
-        # Dense cluster leaves (bvh/cluster.py): node_rows becomes the
-        # cluster TOP tree; the per-lane layout keeps the full tree for
-        # the non-cluster paths. Packing runs post-cache, so the scene
-        # cache stays cluster-agnostic.
-        from gpupathtracer_tpu.bvh.cluster import pack_clusters
-        gn = np.cross(soup.e1, soup.e2)
-        nsign = np.where(np.einsum("ij,ij->i", gn, soup.normal) < 0.0,
-                         -1.0, 1.0).astype(np.float32)
-        wide = pack_clusters(wide, soup.p0, soup.e1, soup.e2,
-                             tc=cfg.cluster_tris, arity=cfg.wide_arity,
-                             tri_mat=soup.mat, tri_nsign=nsign)
     if wide.node_rows is None:
         from gpupathtracer_tpu.bvh.wide import pack_for_packets
-        # Shading-normal sign vs the geometric e1 x e2 (mesh.py flips the
-        # face normal toward the average vertex normal) — captured at hit
-        # time by the megakernel together with the material id.
-        gn = np.cross(soup.e1, soup.e2)
-        nsign = np.where(np.einsum("ij,ij->i", gn, soup.normal) < 0.0,
-                         -1.0, 1.0).astype(np.float32)
         wide = pack_for_packets(wide, soup.p0, soup.e1, soup.e2,
-                                leaf_size=cfg.leaf_size,
-                                tri_mat=soup.mat, tri_nsign=nsign)
-    if wide.cut_entry is None:
-        from gpupathtracer_tpu.bvh.treelet import build_treelet_cut
-        cut_entry, cut_bounds = build_treelet_cut(
-            np.asarray(wide.node_rows), stats.num_wide_nodes)
-        wide = wide._replace(cut_entry=cut_entry, cut_bounds=cut_bounds)
+                                leaf_size=cfg.leaf_size)
 
     M = int(table.albedo.shape[0])
     mrows = np.zeros((max(M, 1), 16), np.float32)
@@ -198,8 +173,7 @@ def _upload(soup, table, idx, cdf, total_area, wide, stats, env, cfg,
     # Per-triangle shading row with the triangle's MATERIAL row pre-joined
     # (cols 16:32 = mat_rows[tri.mat]): the wavefront hot loop then pays ONE
     # [N, 32] row gather per bounce instead of tri_shade[prim] followed by
-    # mat_rows[mat_id] — row gathers cost ~30 ns/element width-independent
-    # (PERF.md), so the join removes a full gather per lane-bounce.
+    # mat_rows[mat_id], so the join removes a full gather per lane-bounce.
     T = soup.num_triangles
     shade = np.zeros((max(T, 1), 32), np.float32)
     if T:
@@ -260,14 +234,7 @@ def _upload(soup, table, idx, cdf, total_area, wide, stats, env, cfg,
                     child_entry=jnp.asarray(wide.child_entry),
                     refs=jnp.asarray(wide.refs),
                     node_rows=jnp.asarray(wide.node_rows),
-                    packet_entry=jnp.asarray(wide.packet_entry),
-                    cut_entry=jnp.asarray(wide.cut_entry),
-                    cut_bounds=jnp.asarray(wide.cut_bounds),
-                    cluster_rows=(jnp.asarray(wide.cluster_rows)
-                                  if wide.cluster_rows is not None else None),
-                    cluster_refs=(jnp.asarray(wide.cluster_refs)
-                                  if wide.cluster_refs is not None else None),
-                    ),
+                    packet_entry=jnp.asarray(wide.packet_entry)),
     )
     meta = SceneMeta(
         num_triangles=soup.num_triangles,

@@ -36,7 +36,7 @@ def test_degenerate_triangles_bvh():
     from gpupathtracer_tpu.bvh import WideBVH, build_wide_bvh
     from gpupathtracer_tpu.bvh.wide import pack_for_packets
     from gpupathtracer_tpu.ops.intersect import pack_tri_geom
-    from gpupathtracer_tpu.ops.packet_traverse import closest_hit_packets
+    from gpupathtracer_tpu.ops.traverse import trace_rows
 
     rng = np.random.RandomState(3)
     n = 64
@@ -56,11 +56,14 @@ def test_degenerate_triangles_bvh():
     o = jnp.asarray(rng.uniform(-4, 4, (128, 3)), jnp.float32)
     d = jnp.asarray(rng.normal(size=(128, 3)), jnp.float32)
     d = d / jnp.linalg.norm(d, axis=1, keepdims=True)
-    h = closest_hit_packets(dev, o, d, jnp.full((128,), 1e20, jnp.float32),
-                            stack_depth=stats.max_depth * 7 + 2)
-    assert np.isfinite(np.asarray(h.t)[np.asarray(h.prim) >= 0]).all()
+    t, prim, *_ = trace_rows(dev.node_rows, o, d,
+                             jnp.full((128,), 1e20, jnp.float32),
+                             jnp.ones((128,), bool), traversal="packet",
+                             stack_depth=stats.max_depth * 7 + 2,
+                             leaf_size=4)
+    assert np.isfinite(np.asarray(t)[np.asarray(prim) >= 0]).all()
     # Zero-area triangles never get hit (strict MT inequalities).
-    hit_prims = set(np.asarray(h.prim)[np.asarray(h.prim) >= 0].tolist())
+    hit_prims = set(np.asarray(prim)[np.asarray(prim) >= 0].tolist())
     assert not (hit_prims & set(range(8)))
 
 

@@ -69,7 +69,7 @@ def render_hits(name):
     act = jnp.ones((n,), bool)
     hit = trace_closest(scene, o, d, tmax, act,
                         stack_depth=meta.stack_depth,
-                        leaf_size=meta.leaf_size, traversal="pallas",
+                        leaf_size=meta.leaf_size, traversal="auto",
                         packet_size=128)
     return (np.asarray(hit.prim, np.int32), np.asarray(hit.t, np.float32))
 

@@ -5,9 +5,26 @@ import pytest
 from gpupathtracer_tpu.bvh import WideBVH, build_wide_bvh
 from gpupathtracer_tpu.bvh.wide import pack_for_packets
 from gpupathtracer_tpu.ops.intersect import pack_tri_geom
-from gpupathtracer_tpu.ops.packet_traverse import (any_hit_packets,
-                                                   closest_hit_packets)
-from gpupathtracer_tpu.ops.traverse import any_hit, closest_hit
+from gpupathtracer_tpu.ops.traverse import Hit, any_hit, closest_hit, trace_rows
+
+
+def closest_hit_packets(dev, o, d, tmax, active=None, *, stack_depth,
+                        packet_size=128):
+    if active is None:
+        active = jnp.ones((o.shape[0],), bool)
+    t, prim, u, v, _ = trace_rows(dev.node_rows, o, d, tmax, active,
+                                  traversal="packet", stack_depth=stack_depth,
+                                  leaf_size=4, packet_size=packet_size)
+    return Hit(t=t, prim=prim, u=u, v=v)
+
+
+def any_hit_packets(dev, o, d, tmax, *, stack_depth, packet_size=128):
+    _, prim, _, _, _ = trace_rows(dev.node_rows, o, d, tmax,
+                                  jnp.ones((o.shape[0],), bool),
+                                  traversal="packet", stack_depth=stack_depth,
+                                  leaf_size=4, packet_size=packet_size,
+                                  any_hit=True)
+    return prim >= 0
 
 pytestmark = pytest.mark.slow  # render/traversal jits dominate; quick tier = -m 'not slow'
 
@@ -22,7 +39,6 @@ def scene():
     p0, p1, p2 = tri[:, 0], tri[:, 1], tri[:, 2]
     wide, stats = build_wide_bvh(p0, p1, p2, leaf_size=4, builder="numpy")
     wide = pack_for_packets(wide, p0, (p1 - p0), (p2 - p0), leaf_size=4)
-    # Optional fields (r4 cluster_rows/cluster_refs) stay None when unused.
     dev = WideBVH(*(jnp.asarray(a) if a is not None else None
                     for a in wide))
     geom = jnp.asarray(pack_tri_geom(p0, p1 - p0, p2 - p0))

@@ -38,7 +38,7 @@ def test_partitioned_trace_matches_replicated(bunny):
     kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size,
               packet_size=128)
 
-    ref = trace_closest(scene, o, d, tmax, act, traversal="pallas", **kw)
+    ref = trace_closest(scene, o, d, tmax, act, traversal="perray", **kw)
     hit = trace_closest_partitioned(mesh, tables, dev_bounds, o, d, tmax,
                                     act, **kw)
     t_p, t_r = np.asarray(hit.t), np.asarray(ref.t)
@@ -53,7 +53,7 @@ def test_partitioned_stats_counters(bunny):
     """with_stats: the per-(chip, hop) routed/improved counters are
     consistent — results unchanged, improved <= routed, every found hit
     implies at least one improving hop, and total routed/ray (the hops/ray
-    V of the PERF.md ICI model, measured by tools/partition_bench.py) is
+    V of the migration cost model, counted by tools/partition_bench.py) is
     bounded by the ring length."""
     scene, meta = bunny
     rows = np.asarray(scene.bvh.node_rows)
@@ -102,7 +102,7 @@ def test_partitioned_occlusion_matches_replicated(bunny):
     kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size,
               packet_size=128)
 
-    ref = trace_occluded(scene, o, d, tmax, act, traversal="pallas", **kw)
+    ref = trace_occluded(scene, o, d, tmax, act, traversal="perray", **kw)
     occ = trace_closest_partitioned(mesh, tables, dev_bounds, o, d, tmax,
                                     act, any_hit=True, **kw)
     np.testing.assert_array_equal(np.asarray(occ), np.asarray(ref))
@@ -129,7 +129,7 @@ def test_partitioned_trace_replicate_hot(bunny):
     kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size,
               packet_size=128)
 
-    ref = trace_closest(scene, o, d, tmax, act, traversal="pallas", **kw)
+    ref = trace_closest(scene, o, d, tmax, act, traversal="perray", **kw)
     hit = trace_closest_partitioned(mesh, tables, route, o, d, tmax,
                                     act, **kw)
     t_p, t_r = np.asarray(hit.t), np.asarray(ref.t)
@@ -138,7 +138,7 @@ def test_partitioned_trace_replicate_hot(bunny):
     assert (same | np.isclose(t_p, t_r, rtol=1e-6, atol=1e-6)).all()
 
     tm3 = jnp.full((N,), 3.0, jnp.float32)
-    occ_ref = trace_occluded(scene, o, d, tm3, act, traversal="pallas",
+    occ_ref = trace_occluded(scene, o, d, tm3, act, traversal="perray",
                              **kw)
     occ = trace_closest_partitioned(mesh, tables, route, o, d, tm3, act,
                                     any_hit=True, **kw)
@@ -199,7 +199,7 @@ def test_replicate_hot_two_level_roots(bunny):
     kw = dict(stack_depth=meta.stack_depth, leaf_size=meta.leaf_size,
               packet_size=128)
 
-    ref = trace_closest(scene, o, d, tmax, act, traversal="pallas", **kw)
+    ref = trace_closest(scene, o, d, tmax, act, traversal="perray", **kw)
     hit = trace_closest_partitioned(mesh, tables, route, o, d, tmax,
                                     act, **kw)
     t_p, t_r = np.asarray(hit.t), np.asarray(ref.t)
@@ -209,7 +209,7 @@ def test_replicate_hot_two_level_roots(bunny):
 
 
 def test_partitioned_trace_ici_contract(bunny):
-    """HLO-level pin of the ICI contract (PERF.md cost model): the
+    """HLO-level pin of the interconnect contract of the ring: the
     partitioned trace moves ray state ONLY via collective-permute (the
     static ring — uniform per-hop bandwidth), with NO all-reduce /
     all-gather / all-to-all / reduce-scatter anywhere, so a refactor
@@ -234,7 +234,7 @@ def test_partitioned_trace_ici_contract(bunny):
         return trace_closest_partitioned(
             mesh, tables, route, o, d, tmax, act,
             stack_depth=meta.stack_depth, leaf_size=meta.leaf_size,
-            packet_size=128, interpret=True)
+            packet_size=128)
 
     txt = (jax.jit(fn).lower(tables, route, o, d, tmax, act)
            .compile().as_text())

@@ -1,4 +1,4 @@
-"""Multi-chip sharding tests on the 8-device CPU mesh (v5e-8 stand-in)."""
+"""Multi-device sharding tests on the 8-device CPU mesh."""
 
 import math
 
@@ -194,11 +194,10 @@ def test_sharded_checkpoint_resume_bitwise(tmp_path):
 
 
 def test_pixels_axis_radiance_stays_local(cornell):
-    """Multi-host DCN contract (TODO.md roadmap): mapping the mesh's
-    "pixels" axis to the cross-host (DCN) dimension must move NO radiance
-    across it — each host accumulates its own film tile locally and the
+    """Multi-host contract: mapping the mesh's "pixels" axis to the
+    cross-host dimension must move NO radiance across it — each host accumulates its own film tile locally and the
     only pixels-axis collective is the scalar ray counter (8 bytes per
-    frame). The samples axis (the psum of radiance) then rides ICI within
+    frame). The samples axis (the psum of radiance) then stays within
     a host. Pinned at the compiled-HLO level so a refactor cannot
     silently introduce a cross-host all-reduce of the film."""
     import re
@@ -267,45 +266,3 @@ def test_film_padding_non_dividing_pixels_axis():
     r2.render_frame()
     img2 = r2.film_hdr()
     assert abs(img.mean() - img2.mean()) / max(img2.mean(), 1e-6) < 0.5
-
-
-def test_mega_sample_axis_sharded(cornell):
-    """Config-4 sample-axis composition (round 5): the megakernel with
-    in-kernel path regeneration sharded over "samples" — psum radiance
-    is the only collective; agrees statistically with the single-chip
-    megakernel at matched spp."""
-    from jax.sharding import Mesh
-
-    from gpupathtracer_tpu.ops.megakernel import (mega_eligible,
-                                                  pack_mega_tables,
-                                                  render_sample_mega)
-    from gpupathtracer_tpu.parallel import render_sample_mega_sharded
-
-    cfg, scene, meta = cornell
-    assert mega_eligible(scene, meta, textured=False, delta=False,
-                         sun=False)
-    tables = pack_mega_tables(scene)
-    cam = generate_image_plane(cfg.camera)
-    px, py = _pixels()
-    mk = dict(width=32, height=32, stack_depth=meta.stack_depth,
-              leaf_size=meta.leaf_size, max_bounces=4, nee=True,
-              model=cfg.microfacet, n_mats=meta.num_materials,
-              n_lights=int(scene.light_rows.shape[0]), packet_size=256,
-              interpret=True)
-    mesh = Mesh(np.array(jax.devices()), axis_names=("samples",))
-    SPP_CHIP = 2
-    c, rays = render_sample_mega_sharded(
-        mesh, scene, tables, cam, px, py, jax.random.PRNGKey(5),
-        spp_per_chip=SPP_CHIP, **mk)
-    total_spp = SPP_CHIP * 8
-    img = np.asarray(c) / total_spp
-    assert img.shape == (32 * 32, 3)
-    assert np.isfinite(img).all() and img.mean() > 0
-    assert int(rays) > total_spp * 32 * 32  # primaries alone exceed this
-
-    # Single-chip reference at matched spp (regen, one dispatch).
-    c1, _ = render_sample_mega(scene, tables, cam, px, py,
-                               jax.random.PRNGKey(6), sample_idx=0,
-                               spp=total_spp, **mk)
-    ref = np.asarray(c1) / total_spp
-    assert abs(img.mean() - ref.mean()) / ref.mean() < 0.1

@@ -1,4 +1,4 @@
-"""Tools-script smoke: every tool imports and parses --help without a TPU.
+"""Tools-script smoke: every tool imports and parses --help without a GPU.
 
 Protects tools/ (microbench, parity, frame profiler, sampler viz) from
 bitrot against API changes — they are the measurement record's provenance
@@ -14,7 +14,7 @@ TOOLS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools")
 
 
-@pytest.mark.parametrize("script", ["kernel_bench.py", "parity_tpu.py"])
+@pytest.mark.parametrize("script", ["kernel_bench.py", "parity.py"])
 def test_tool_help_runs(script):
     out = subprocess.run(
         [sys.executable, os.path.join(TOOLS, script), "--help"],

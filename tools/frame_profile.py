@@ -1,8 +1,12 @@
 #!/usr/bin/env python
-"""Headline-frame cost bisection (PERF.md frame decomposition).
+"""Headline-frame cost bisection.
 
 Renders the bench config with estimator stages toggled off to attribute
-frame time; run on the TPU. Extend with more frame() variants as needed."""
+frame time, on the GPU. Each frame is ended by block_until_ready; each
+variant is the median of 3 runs of 3 frames. Extend VARIANTS as needed.
+
+Usage: python tools/frame_profile.py [full,nonee,...] [--scene proc:sponza]
+"""
 import argparse
 import sys, math, time, statistics
 sys.path.insert(0, __import__("os").path.dirname(__import__("os").path.dirname(__import__("os").path.abspath(__file__))))
@@ -52,59 +56,23 @@ def frame(label, **kw):
     return m
 
 VARIANTS = {
-    "full": dict(bounce_traversal="same"),
-    "nonee": dict(bounce_traversal="same", nee_enabled=False),
-    "tsort": dict(bounce_traversal="tsort"),
-    "tsort-nonee": dict(bounce_traversal="tsort", nee_enabled=False),
-    "shadowrev": dict(bounce_traversal="same", shadow_rev=True),
-    "tsort-shadowrev": dict(bounce_traversal="tsort", shadow_rev=True),
-    "tsort-shadowsort": dict(bounce_traversal="tsort", shadow_sort=True),
+    "full": dict(),
+    "nonee": dict(nee_enabled=False),
+    "shadowrev": dict(shadow_rev=True),
     # compaction bisect: phase-transition argsort+gather cost
-    "tsort-nocompact": dict(bounce_traversal="tsort", shadow_sort=True,
-                            compaction=False),
-    # coarser compaction schedule: fewer transitions
-    "tsort-coarse": dict(bounce_traversal="tsort", shadow_sort=True,
-                         compaction_divs=(4, 16, 64)),
-    "tsort-coarse2": dict(bounce_traversal="tsort", shadow_sort=True,
-                          compaction_divs=(8, 64)),
-    "tsort-coarse3": dict(bounce_traversal="tsort", shadow_sort=True,
-                          compaction_divs=(4, 32, 256)),
-    # alternate-bounce perm reuse (skip key+argsort on odd bounces)
-    "tsort-alt": dict(bounce_traversal="tsort", shadow_sort=True,
-                      tsort_alternate=True),
-    # small-scene glue bisection (bathroom-class: tsort is off by size gate)
-    "nocompact": dict(bounce_traversal="same", compaction=False),
-    "batch4": dict(bounce_traversal="same", frame_batch=4),
-    "batch8": dict(bounce_traversal="same", frame_batch=8),
-    "bounces8": dict(bounce_traversal="same", max_bounces=8),
-    "bounces16": dict(bounce_traversal="same", max_bounces=16),
+    "nocompact": dict(compaction=False),
+    "coarse2": dict(compaction_divs=(8, 64)),
+    "fine4": dict(compaction_divs=(2, 8, 32, 128)),
+    "batch4": dict(frame_batch=4),
+    "batch8": dict(frame_batch=8),
+    "bounces8": dict(max_bounces=8),
+    "bounces16": dict(max_bounces=16),
     # primary floor: camera gen + ONE coherent trace + shade glue (+NEE)
-    "b0-nonee": dict(bounce_traversal="same", nee_enabled=False,
-                     max_bounces=0),
-    "b0": dict(bounce_traversal="same", max_bounces=0),
-    # schedule re-probe after the session-7 glue cuts
-    "tsort-fine4": dict(bounce_traversal="tsort", shadow_sort=True,
-                        compaction_divs=(2, 8, 32, 128)),
-    "tsort-coarse4": dict(bounce_traversal="tsort", shadow_sort=True,
-                          compaction_divs=(4, 16, 64, 256)),
-    # round-4 megakernel (ops/megakernel.py): whole bounce loop on-core
-    "mega": dict(megakernel="on"),
-    "mega-nonee": dict(megakernel="on", nee_enabled=False),
-    "mega-b0": dict(megakernel="on", max_bounces=0),
-    "mega-batch8": dict(megakernel="on", frame_batch=8),
-    "mega-bounces8": dict(megakernel="on", max_bounces=8),
-    # fused-pair pop pairing (two packets per grid step, one region per
-    # phase pair — the pop-latency-chain lever)
-    "fpair": dict(bounce_traversal="same", fused_pair=True),
-    "tsort-fpair": dict(bounce_traversal="tsort", shadow_sort=True,
-                        fused_pair=True),
-    # round-4 dense cluster leaves (bvh/cluster.py): subtree-sized MXU
-    # pops; megacluster composes them into the on-core bounce loop.
-    "cluster": dict(cluster_tris=128),
-    "cluster256": dict(cluster_tris=256),
-    "cluster-nonee": dict(cluster_tris=128, nee_enabled=False),
-    "megacluster": dict(megakernel="on", cluster_tris=128),
-    "megacluster256": dict(megakernel="on", cluster_tris=256),
+    "b0-nonee": dict(nee_enabled=False, max_bounces=0),
+    "b0": dict(max_bounces=0),
+    # traversal paths on the same frame
+    "packet": dict(traversal="packet"),
+    "perray": dict(traversal="perray"),
 }
 
 names = _ARGS.variants.split(",")
